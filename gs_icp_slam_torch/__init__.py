@@ -1,0 +1,44 @@
+"""gs_icp_slam_torch — the PyTorch/CUDA port of gs_icp_slam_tpu for one
+NVIDIA H100.
+
+The module layout and public names follow the JAX package, so each
+function has a counterpart of the same name there.  Plain tensor code is
+PyTorch; every Pallas kernel on the ported path is a CUDA kernel written
+by hand for Hopper (sources in `csrc/`, built on first use by
+`cuda_build.py`).  Each kernel wrapper keeps a plain PyTorch version of
+the same function, which it runs only for tensors on the CPU.
+
+Ported so far (the first slice): G-ICP tracking, keyframe insertion with
+covariance sharing, target export and forward rendering — the
+`SLAMEngine` path with no mapping iterations.
+
+Layout:
+  utils/     quaternion / SE(3) / camera / SH / point-cloud math
+  ops/       kNN, 3x3 eigh, covariances, G-ICP, projection, rasterizer,
+             and the kernel wrappers (nn_cuda, composite_cuda)
+  models/    the fixed-capacity Gaussian map
+  slam/      the staged engine
+  datasets/  the procedural synthetic RGB-D sequence
+  eval/      ATE
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Geometry (point coordinates, covariances, pose solves) needs true float32
+# products; TF32 keeps ~3 decimal digits, fatal for mm-scale residuals
+# over meter-scale scenes.  Both switches, since cuDNN's defaults to on.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> _torch.device:
+    """The device an entry point runs on.  The default is the GPU; with no
+    GPU present this raises unless the caller asked for the CPU."""
+    dev = _torch.device(device)
+    if dev.type == "cuda" and not _torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev

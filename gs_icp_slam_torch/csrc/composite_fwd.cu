@@ -1,0 +1,123 @@
+// K1-fwd: per-tile front-to-back alpha compositing of depth-sorted splats.
+//
+// Replaces: gs_icp_slam_tpu/ops/composite_pallas.py `_fwd_kernel_win`
+// (built by `make_composite_win`, called from ops/rasterize.py).
+//
+// Contract: tile t owns rows [starts[t], starts[t] + counts[t]) of the
+// tile-sorted pair table, front to back; pair_slot[row] is a column of the
+// channel-first splat table attr (R >= 10 rows, Vp columns; rows 0 mx,
+// 1 my, 2-4 conic a/b/c, 5-7 rgb, 8 opacity, 9 depth).  For each pixel
+// (px, py) of the tile:
+//   power = -0.5 * (a*dx*dx + c*dy*dy) - b*dx*dy,  dx = px - mx, dy = py - my
+//   alpha = min(opacity * exp(power), 0.99), used where power <= 0 and
+//           opacity * exp(power) >= 1/255
+// and a splat counts only while the transmittance after it stays >= 1e-4;
+// the first splat that would take it below stops the pixel (the CUDA
+// rasterizer's `done` rule, equal to the Pallas kernel's exclusion of
+// every later splat).  out (T, 8, P): rows 0-2 rgb (no background),
+// 3 depth (sum of w * depth, not normalised), 4 final transmittance,
+// 5-7 zero.
+//
+// What bounds it on the H100: arithmetic on the (pixel, splat) pairs each
+// pixel examines before it stops, ~30 fp32 operations each (one exp);
+// the inputs read are a few MB.  The count depends on the data:
+// chip_smoke.py counts it from the run's own view.
+//
+// Design: one block per tile, one thread per pixel (P = tile^2 <= 1024).
+// The block streams its run through shared memory in batches of kBatch
+// splats, each thread gathering one splat's 10 attributes through
+// pair_slot: no dense (T, 16, K) gather, no payload window and no buffer
+// of size K (K reaches max_per_tile = 4096).  Each thread composites front
+// to back and stops at the done rule; the block leaves as soon as no
+// thread is left (__syncthreads_count), the per-tile early exit of the
+// Pallas kernel.  Built without fused multiply-add so that the plain
+// PyTorch version rounds the same way.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBatch = 256;
+constexpr float kAlphaMin = 1.0f / 255.0f;
+constexpr float kAlphaMax = 0.99f;
+constexpr float kTEps = 1e-4f;
+
+__global__ void __launch_bounds__(1024)
+composite_fwd_kernel(const int* __restrict__ counts,
+                     const int* __restrict__ starts,
+                     const int* __restrict__ pair_slot,
+                     const float* __restrict__ attr, int Vp, int ntx,
+                     int tile, float* __restrict__ out) {
+  __shared__ float s_attr[10][kBatch];
+  const int t = blockIdx.x;
+  const int P = tile * tile;
+  const int pid = threadIdx.x;
+  const float px = static_cast<float>((t % ntx) * tile + pid % tile);
+  const float py = static_cast<float>((t / ntx) * tile + pid / tile);
+  const int count = counts[t];
+  const int start = starts[t];
+
+  float tr = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, cd = 0.f;
+  bool done = false;
+  for (int b0 = 0; b0 < count; b0 += kBatch) {
+    // also the barrier that keeps the previous batch until all have read it
+    if (__syncthreads_count(!done) == 0) break;
+    const int n = min(kBatch, count - b0);
+    for (int j = pid; j < n; j += blockDim.x) {
+      const int s = pair_slot[start + b0 + j];
+#pragma unroll
+      for (int c = 0; c < 10; ++c) s_attr[c][j] = attr[c * Vp + s];
+    }
+    __syncthreads();
+    if (done) continue;
+    for (int j = 0; j < n; ++j) {
+      const float dx = px - s_attr[0][j];
+      const float dy = py - s_attr[1][j];
+      const float power = -0.5f * (s_attr[2][j] * dx * dx +
+                                   s_attr[4][j] * dy * dy) -
+                          s_attr[3][j] * dx * dy;
+      if (!(power <= 0.f)) continue;
+      const float araw = s_attr[8][j] * expf(power);
+      if (!(araw >= kAlphaMin)) continue;
+      const float alpha = fminf(araw, kAlphaMax);
+      const float t_next = tr * (1.f - alpha);
+      if (t_next < kTEps) {
+        done = true;
+        break;
+      }
+      const float w = alpha * tr;
+      cr = cr + w * s_attr[5][j];
+      cg = cg + w * s_attr[6][j];
+      cb = cb + w * s_attr[7][j];
+      cd = cd + w * s_attr[9][j];
+      tr = t_next;
+    }
+  }
+  float* o = out + static_cast<size_t>(t) * 8 * P + pid;
+  o[0 * P] = cr;
+  o[1 * P] = cg;
+  o[2 * P] = cb;
+  o[3 * P] = cd;
+  o[4 * P] = tr;
+  o[5 * P] = 0.f;
+  o[6 * P] = 0.f;
+  o[7 * P] = 0.f;
+}
+
+}  // namespace
+
+GS_EXPORT_ERROR_STRING
+
+// counts, starts (T,) int32; pair_slot (Np,) int32; attr (>= 10, Vp)
+// float32 channel-first; out (T, 8, tile*tile) float32; tile*tile <= 1024.
+extern "C" int composite_fwd_launch(const int* counts, const int* starts,
+                                    const int* pair_slot, const float* attr,
+                                    int T, int Vp, int ntx, int tile,
+                                    float* out, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int P = tile * tile;
+  if (P < 1 || P > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 0) return static_cast<int>(cudaGetLastError());
+  composite_fwd_kernel<<<T, P, 0, stream>>>(counts, starts, pair_slot, attr,
+                                            Vp, ntx, tile, out);
+  return static_cast<int>(cudaGetLastError());
+}

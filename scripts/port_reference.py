@@ -1,0 +1,57 @@
+"""Reference quality values for the PyTorch port's chip smoke run.
+
+Runs the JAX `SLAMEngine` (tracking, keyframe insertion with covariance
+sharing, target export, render/eval; no mapping iterations) on the CPU at
+the configuration `chip_smoke.py` drives the port with, and prints one
+JSON line: ATE, Gaussian count, keyframe count and per-frame PSNR.  These
+are quality numbers, not speeds: `chip_smoke.py` holds the port's run on
+the GPU against them (PERF.md lists the values).
+
+    JAX_PLATFORMS=cpu python scripts/port_reference.py [--frames 36]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--width", type=int, default=1200)
+    ap.add_argument("--height", type=int, default=680)
+    ap.add_argument("--frames", type=int, default=36)
+    args = ap.parse_args()
+
+    import numpy as np
+
+    from gs_icp_slam_tpu.config import synthetic_config
+    from gs_icp_slam_tpu.datasets import open_dataset
+    from gs_icp_slam_tpu.slam import SLAMEngine
+
+    seq = open_dataset("synthetic", width=args.width, height=args.height,
+                       num_frames=args.frames)
+    cfg = synthetic_config(seq.intr, downsample_rate=10, capacity=1 << 18,
+                           target_capacity=1 << 16,
+                           visible_capacity=1 << 16)
+    cfg = cfg.replace(engine=dataclasses.replace(
+        cfg.engine, mapping_iters_per_frame=0, mapping_iters_final=0,
+        keyframe_capacity=64))
+    res = SLAMEngine(seq, cfg).run(eval_render=True)
+    print(json.dumps({
+        "width": args.width, "height": args.height, "frames": args.frames,
+        "ate_m": res.ate_rmse, "num_gaussians": res.num_gaussians,
+        "kf_total": res.kf_total,
+        "psnr_mean": res.psnr, "psnr_min": float(np.min(res.per_frame_psnr)),
+        "per_frame_psnr": [float(x) for x in res.per_frame_psnr],
+        "vis_cap_dropped": res.vis_cap_dropped,
+        "tile_cap_dropped": res.tile_cap_dropped,
+    }))
+
+
+if __name__ == "__main__":
+    main()

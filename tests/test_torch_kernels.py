@@ -1,0 +1,159 @@
+"""PyTorch port: each hand-written CUDA kernel against its plain PyTorch
+version on the card.  These need a CUDA device and skip without one; the
+file imports neither JAX nor the JAX package, so it runs on a machine
+with the card but without JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+Tolerances: K2 and K3 are exact (the kernels round each operation of the
+distance as PyTorch does, and keep the lowest-index tie rule); K1-fwd
+atol 1e-5 (the same operation order; exp may differ by an ulp).
+"""
+import numpy as np
+import pytest
+import torch
+
+from gs_icp_slam_torch.ops import composite_cuda, nn_cuda
+from gs_icp_slam_torch.ops.rasterize import rasterize_tiled
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("Q,R", [(300, 4096), (1000, 20000), (7, 100)])
+def test_nn1_kernel_matches_plain(dev, Q, R):
+    rng = np.random.default_rng(Q)
+    q = torch.as_tensor(rng.normal(size=(Q, 3)).astype(np.float32)).to(dev)
+    ref = rng.normal(size=(3, R)).astype(np.float32)
+    ref[:, 7] = ref[:, 3]  # an exact tie
+    rT = torch.as_tensor(ref).to(dev)
+    valid = torch.as_tensor(rng.random(R) > 0.3).to(dev)
+    valid[[3, 7]] = True
+    bias = torch.where(valid, 0.0, 3.4e38).float()[None].contiguous()
+    i1, d1 = nn_cuda.nn_search_pre(q, rT, bias)
+    i0, d0 = nn_cuda.nn1_plain(q, rT, bias)
+    assert torch.equal(i1, i0)
+    assert torch.equal(d1, d0)
+
+
+def test_nn1_kernel_no_valid_ref(dev):
+    q = torch.ones((5, 3), device=dev)
+    rT = torch.zeros((3, 64), device=dev)
+    bias = torch.full((1, 64), 3.4e38, device=dev)
+    i1, d1 = nn_cuda.nn_search_pre(q, rT, bias)
+    assert (i1 == 0).all() and (d1 == np.float32(3.4e38)).all()
+
+
+@pytest.mark.parametrize("k", [1, 4, 20, 32])
+def test_knn_kernel_matches_plain(dev, k):
+    rng = np.random.default_rng(k)
+    pts = rng.normal(size=(3000, 3)).astype(np.float32)
+    pts[10] = pts[20]  # an exact tie
+    ref = torch.as_tensor(pts).to(dev)
+    valid = torch.as_tensor(rng.random(3000) > 0.2).to(dev)
+    i1, d1 = nn_cuda.knn_search_kernel(ref, ref, valid, k)
+    i0, d0 = nn_cuda.knn_plain(ref, ref, valid, k)
+    assert torch.equal(d1, d0)
+    have = d0 < 1e37
+    assert torch.equal(i1[have], i0[have])
+
+
+def test_knn_kernel_missing_neighbours(dev):
+    ref = torch.randn((50, 3), device=dev)
+    valid = torch.zeros(50, dtype=torch.bool, device=dev)
+    valid[[4, 9]] = True
+    _, d = nn_cuda.knn_search_kernel(ref, ref, valid, 5)
+    assert (d[:, 2:] == np.float32(3.4e38)).all()
+
+
+def _composite_inputs(saturated: bool, tile=32, ntx=3, nty=2, K=128, V=256):
+    T = ntx * nty
+    rng = np.random.default_rng(7)
+    counts = rng.integers(8, K, size=(T,)).astype(np.int32)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    pair_slot = rng.integers(0, V, size=(int(counts.sum()),)).astype(np.int32)
+    attr = np.zeros((10, V + 1), np.float32)
+    lo, hi = (0.001, 0.01) if saturated else (0.01, 0.1)
+    attr[0] = rng.uniform(0, ntx * tile, V + 1)
+    attr[1] = rng.uniform(0, nty * tile, V + 1)
+    attr[2] = rng.uniform(lo, hi, V + 1)
+    attr[4] = rng.uniform(lo, hi, V + 1)
+    attr[3] = 0.2 * np.sqrt(attr[2] * attr[4])
+    attr[5:8] = rng.uniform(0, 1, (3, V + 1))
+    attr[8] = rng.uniform(0.8 if saturated else 0.2, 0.99, V + 1)
+    attr[9] = rng.uniform(0.5, 5.0, V + 1)
+    attr[:, V] = 0.0
+    return counts, starts, pair_slot, attr, ntx, tile
+
+
+@pytest.mark.parametrize("saturated", [False, True])
+@pytest.mark.parametrize("tile", [16, 32])
+def test_composite_kernel_matches_plain(dev, saturated, tile):
+    counts, starts, pair_slot, attr, ntx, tile = _composite_inputs(
+        saturated, tile=tile)
+    args = [torch.as_tensor(a).to(dev) for a in (counts, starts, pair_slot,
+                                                 attr)]
+    got = composite_cuda.composite_fwd(*args, ntx, tile)
+    ref = composite_cuda.composite_fwd_plain(*args, ntx, tile)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+def test_rasterize_on_the_card_matches_the_cpu(dev):
+    rng = np.random.default_rng(5)
+    n = 300
+    xyz = np.stack([rng.uniform(-0.9, 0.9, n), rng.uniform(-0.6, 0.6, n),
+                    rng.uniform(1.2, 3.0, n)], 1).astype(np.float32)
+    quat = rng.normal(size=(n, 4)).astype(np.float32)
+    scale = rng.uniform(0.02, 0.08, (n, 3)).astype(np.float32)
+    opacity = rng.uniform(0.3, 0.95, n).astype(np.float32)
+    sh = rng.uniform(-0.4, 0.4, (n, 1, 3)).astype(np.float32)
+    live = np.ones(n, bool)
+    w2c = np.eye(4, dtype=np.float32)
+    outs = []
+    for d in ("cpu", dev):
+        t = [torch.as_tensor(a).to(d) for a in
+             (xyz, quat, scale, opacity, sh, w2c, live)]
+        o = rasterize_tiled(*t, torch.zeros(3, device=d), 60.0, 60.0, 63.5,
+                            47.5, sh_degree=0, width=128, height=96, tile=32,
+                            visible_cap=512, tile_span=2, tile_cap=256)
+        outs.append(o)
+    # CUDA's expf and the CPU's exp may differ by an ulp, which can flip a
+    # splat across the 1/255 alpha gate at a rare pixel: at most ~4e-3 of
+    # a colour there (x depth, < 3 m here, in the depth channel)
+    for name, lim in (("color", 5e-3), ("depth", 1.5e-2), ("t_final", 5e-3)):
+        diff = (getattr(outs[1], name).cpu() - getattr(outs[0], name)).abs()
+        assert float(diff.max()) <= lim, name
+        assert float((diff > 1e-5).float().mean()) <= 1e-3, name
+    assert torch.equal(outs[1].stats.cpu(), outs[0].stats)
+
+
+def test_engine_on_the_card_matches_the_cpu(dev):
+    """The whole slice, 6 frames at 128x96: the CUDA kernels' run against
+    the plain versions' run on the CPU.  Poses atol 1e-4 m and PSNR within
+    0.05 dB (matrix products round differently on the two devices);
+    counts exact."""
+    import dataclasses
+
+    from gs_icp_slam_torch.config import synthetic_config
+    from gs_icp_slam_torch.datasets import InMemorySequence, open_dataset
+    from gs_icp_slam_torch.slam import SLAMEngine
+
+    seq = InMemorySequence(open_dataset("synthetic", width=128, height=96,
+                                        num_frames=6))
+    cfg = synthetic_config(seq.intr, downsample_rate=4, capacity=1 << 14,
+                           target_capacity=1 << 12, visible_capacity=1 << 12)
+    cfg = cfg.replace(engine=dataclasses.replace(
+        cfg.engine, mapping_iters_per_frame=0, mapping_iters_final=0))
+    gpu = SLAMEngine(seq, cfg, device=dev).run()
+    cpu = SLAMEngine(seq, cfg, device="cpu").run()
+    np.testing.assert_allclose(gpu.poses, cpu.poses, atol=1e-4)
+    assert gpu.num_gaussians == cpu.num_gaussians
+    assert gpu.kf_total == cpu.kf_total
+    np.testing.assert_allclose(gpu.per_frame_psnr, cpu.per_frame_psnr,
+                               atol=0.05)
