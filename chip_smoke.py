@@ -4,14 +4,19 @@
 
 1. builds the port's CUDA kernels from gs_icp_slam_torch/csrc (one nvcc per
    source, all at once) and prints the build time;
-2. drives the port's main path through its user entry point: the staged
-   SLAMEngine (G-ICP tracking, covariance-shared map building, target
-   export, render/eval; no mapping iterations) on the 36-frame synthetic
-   sequence at 1200x680, downsample 10, map capacity 2^18, target 2^16,
-   visible cap 2^16.  Every kernel's launch count is zeroed just before
-   the run and read just after it; each must be > 0.  ATE, Gaussian count
+2. drives the port's two paths through their user entry point, the staged
+   SLAMEngine, on the 36-frame synthetic sequence at 1200x680, downsample
+   10, map capacity 2^18, target 2^16, visible cap 2^16, keyframe store 64:
+     A. no mapping iterations: G-ICP tracking, covariance-shared map
+        building, target export, render/eval;
+     B. bench.py's mapping settings: 2 mapping iterations per frame
+        (render a keyframe, SSIM/L1/depth loss, the compositor's backward,
+        masked Adam), init opacity 0.5, feature lr 1e-2.
+   Every kernel's launch count is zeroed just before each path and read
+   just after it; each kernel of the path must be > 0, and K1-bwd must
+   run once per opt step of path B.  ATE, Gaussian count, keyframe count
    and mean PSNR are held against the JAX package's values for the same
-   run (scripts/port_reference.py on the CPU);
+   runs (scripts/port_reference.py on the CPU);
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes, and times kernel, plain version and, where one
    exists, a single PyTorch library call computing the same function
@@ -36,20 +41,27 @@ import time
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# The JAX SLAMEngine on the same configuration (scripts/port_reference.py,
-# JAX on the CPU): quality values, not speeds.
-REF_ATE_M = 0.0022180734651930383
-REF_NUM_GAUSSIANS = 49680
-REF_KF_TOTAL = 6
-REF_PSNR_MEAN = 8.240556557973227
+# The JAX SLAMEngine on the same configurations (scripts/port_reference.py,
+# JAX on the CPU): quality values, not speeds.  Path A, no mapping:
+REF_A = dict(ate_m=0.0022180734651930383, num_gaussians=49680, kf_total=6,
+             psnr_mean=8.240556557973227)
+# Path B, 2 mapping iterations per frame, init opacity 0.5, feature lr 1e-2
+# (scripts/port_reference.py --mapping-iters 2 --init-opacity 0.5
+# --feature-lr 1e-2):
+REF_B = dict(ate_m=0.0018647520233165142, num_gaussians=49680, kf_total=6,
+             psnr_mean=23.574109925164116)
 # Tolerances: ATE within 0.5 mm and mean PSNR within 0.1 dB (float32 sums
 # in another order, and near-tie neighbour picks of the XLA distance form
 # the reference takes on the CPU); counts exact (a difference would be a
 # different keyframe decision).
 TOL_ATE_M = 5e-4
 TOL_PSNR_DB = 0.1
+# K1-bwd against its plain version: each attribute row within this share
+# of the row's largest |gradient| (pixel sums in another order, by atomics)
+TOL_BWD_ROW = 1e-4
 
 WIDTH, HEIGHT, FRAMES = 1200, 680, 36
+MAPPING_ITERS = 2
 
 
 def fail(msg: str) -> None:
@@ -101,6 +113,7 @@ def main() -> None:
         from gs_icp_slam_torch import cuda_build
         from gs_icp_slam_torch.config import synthetic_config
         from gs_icp_slam_torch.datasets import InMemorySequence, open_dataset
+        from gs_icp_slam_torch.models import map_params
         from gs_icp_slam_torch.ops import composite_cuda, nn_cuda
         from gs_icp_slam_torch.ops.rasterize import bin_splats
         from gs_icp_slam_torch.slam import SLAMEngine
@@ -123,48 +136,68 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    # ---- 2. the main path ---------------------------------------------
+    # ---- 2. the two paths ----------------------------------------------
     # frames made up front: synthesizing one costs ~0.1 s on the host,
     # set-up rather than the engine's time
     seq = InMemorySequence(open_dataset("synthetic", width=WIDTH,
                                         height=HEIGHT, num_frames=FRAMES))
-    cfg = synthetic_config(seq.intr, downsample_rate=10, capacity=1 << 18,
-                           target_capacity=1 << 16, visible_capacity=1 << 16)
-    cfg = cfg.replace(engine=dataclasses.replace(
-        cfg.engine, mapping_iters_per_frame=0, mapping_iters_final=0,
+    base = synthetic_config(seq.intr, downsample_rate=10, capacity=1 << 18,
+                            target_capacity=1 << 16, visible_capacity=1 << 16)
+    cfg_a = base.replace(engine=dataclasses.replace(
+        base.engine, mapping_iters_per_frame=0, mapping_iters_final=0,
         keyframe_capacity=64))
-    cuda_build.reset_launch_counts()
-    t0 = time.perf_counter()
-    eng = SLAMEngine(seq, cfg, device="cuda")
-    res = eng.run(eval_render=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
-    psnr_mean = float(res.psnr)
-    print(json.dumps({
-        "main_path": "SLAMEngine.run", "frames": FRAMES,
-        "width": WIDTH, "height": HEIGHT, "fps_tracking": res.fps,
-        "wall_s_with_render": wall, "ate_m": res.ate_rmse,
-        "num_gaussians": res.num_gaussians, "kf_total": res.kf_total,
-        "psnr_mean": psnr_mean, "psnr_min": float(res.per_frame_psnr.min()),
-        "vis_cap_dropped": res.vis_cap_dropped,
-        "tile_cap_dropped": res.tile_cap_dropped, "launches": launches,
-        "tile_cap_K": eng.tile_cap}), flush=True)
+    cfg_b = cfg_a.replace(
+        engine=dataclasses.replace(cfg_a.engine,
+                                   mapping_iters_per_frame=MAPPING_ITERS),
+        map=dataclasses.replace(cfg_a.map, init_opacity=0.5),
+        opt=dataclasses.replace(cfg_a.opt, feature_lr=1e-2))
     problems = []
-    for name, n in launches.items():
-        if n <= 0:
-            problems.append(f"kernel {name} was not launched by the main path")
-    if not np.isfinite(res.poses).all():
-        problems.append("non-finite poses")
-    if abs(res.ate_rmse - REF_ATE_M) > TOL_ATE_M:
-        problems.append(f"ATE {res.ate_rmse} vs reference {REF_ATE_M}")
-    if res.num_gaussians != REF_NUM_GAUSSIANS:
-        problems.append(f"{res.num_gaussians} Gaussians vs reference "
-                        f"{REF_NUM_GAUSSIANS}")
-    if res.kf_total != REF_KF_TOTAL:
-        problems.append(f"{res.kf_total} keyframes vs reference {REF_KF_TOTAL}")
-    if not abs(psnr_mean - REF_PSNR_MEAN) <= TOL_PSNR_DB:
-        problems.append(f"PSNR {psnr_mean} vs reference {REF_PSNR_MEAN}")
+
+    def run_path(name, cfg, ref, kernels_of_path):
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = SLAMEngine(seq, cfg, device="cuda")
+        res = eng.run(eval_render=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+        psnr_mean = float(res.psnr)
+        print(json.dumps({
+            "path": name, "entry": "SLAMEngine.run", "frames": FRAMES,
+            "width": WIDTH, "height": HEIGHT,
+            "mapping_iters_per_frame": cfg.engine.mapping_iters_per_frame,
+            "opt_steps": eng.train_iter, "fps": res.fps,
+            "wall_s_with_render": wall, "ate_m": res.ate_rmse,
+            "num_gaussians": res.num_gaussians, "kf_total": res.kf_total,
+            "psnr_mean": psnr_mean,
+            "psnr_min": float(res.per_frame_psnr.min()),
+            "vis_cap_dropped": res.vis_cap_dropped,
+            "tile_cap_dropped": res.tile_cap_dropped, "launches": launches,
+            "tile_cap_K": eng.tile_cap}), flush=True)
+        for k in kernels_of_path:
+            if launches[k] <= 0:
+                problems.append(f"path {name}: kernel {k} was not launched")
+        if not np.isfinite(res.poses).all():
+            problems.append(f"path {name}: non-finite poses")
+        if not abs(res.ate_rmse - ref["ate_m"]) <= TOL_ATE_M:
+            problems.append(f"path {name}: ATE {res.ate_rmse} vs reference "
+                            f"{ref['ate_m']}")
+        for key, got in (("num_gaussians", res.num_gaussians),
+                         ("kf_total", res.kf_total)):
+            if got != ref[key]:
+                problems.append(f"path {name}: {key} {got} vs reference "
+                                f"{ref[key]}")
+        if not abs(psnr_mean - ref["psnr_mean"]) <= TOL_PSNR_DB:
+            problems.append(f"path {name}: PSNR {psnr_mean} vs reference "
+                            f"{ref['psnr_mean']}")
+        return eng, res, launches
+
+    _, res_a, launches_a = run_path("A", cfg_a, REF_A,
+                                    ("nn1", "knn", "composite_fwd"))
+    eng, res, launches = run_path("B", cfg_b, REF_B, list(cuda_build.KERNELS))
+    if launches["composite_bwd"] != eng.train_iter:
+        problems.append(f"composite_bwd launched {launches['composite_bwd']} "
+                        f"times for {eng.train_iter} opt steps")
 
     # ---- 3. kernels against their plain versions ------------------------
     dev = torch.device("cuda")
@@ -192,7 +225,8 @@ def main() -> None:
     kernels.append(dict(
         name="nn1", route="cuda", source="gs_icp_slam_torch/csrc/nn1.cu",
         replaces="gs_icp_slam_tpu/ops/nn_pallas.py:32",
-        launches=launches["nn1"], max_abs_err=err,
+        launches=launches["nn1"], launches_path_a=launches_a["nn1"],
+        max_abs_err=err,
         ms=time_ms(lambda: nn_cuda.nn_search_pre(q, rT, bias)),
         plain_ms=time_ms(lambda: nn_cuda.nn1_plain(q, rT, bias), reps=3,
                          warmup=1),
@@ -203,6 +237,7 @@ def main() -> None:
     # cloud, k = 20 (covariances) and k = 4 (mean_sq_dist_3nn)
     from gs_icp_slam_torch.utils.pointcloud import (downsample_pointcloud,
                                                     make_downsample_filter)
+    cfg = cfg_b
     intr = cfg.intr
     filt = make_downsample_filter(intr.width, intr.height, intr.fx, intr.fy,
                                   intr.cx, intr.cy, cfg.downsample_rate)
@@ -239,11 +274,12 @@ def main() -> None:
     kernels.append(dict(
         name="knn", route="cuda", source="gs_icp_slam_torch/csrc/knn.cu",
         replaces="gs_icp_slam_tpu/ops/nn_pallas.py:113",
-        launches=launches["knn"], **knn[20], queries=R, k=20,
+        launches=launches["knn"], launches_path_a=launches_a["knn"],
+        **knn[20], queries=R, k=20,
         k4={kk: v for kk, v in knn[4].items()}))
 
-    # K1-fwd on the compositor inputs of a real 1200x680 view of the run's
-    # map (frame 18's estimated pose)
+    # K1-fwd on the compositor inputs of a real 1200x680 view of path B's
+    # mapped map (frame 18's estimated pose)
     m, rc = eng.gmap, cfg.render
     w2c = torch.linalg.inv(torch.as_tensor(res.poses[18], dtype=torch.float32,
                                            device=dev))
@@ -257,9 +293,12 @@ def main() -> None:
                     tile_cap=eng.tile_cap)
     ntx = -(-intr.width // rc.tile_size)
     cargs = (bn.counts, bn.starts, bn.pair_slot, bn.attr_v, ntx, rc.tile_size)
-    o1 = composite_cuda.composite_fwd(*cargs)
-    o0 = composite_cuda.composite_fwd_plain(*cargs)
+    o1, nc1 = composite_cuda.composite_fwd(*cargs)
+    o0, nc0 = composite_cuda.composite_fwd_plain(*cargs)
     torch.cuda.synchronize()
+    if not torch.equal(nc1, nc0):
+        problems.append(f"composite_fwd: n_contrib differs at "
+                        f"{int((nc1 != nc0).sum())} pixels (tolerance: exact)")
     # rgb and transmittance in [0, 1]; depth (sum of w * z, z up to ~3 m)
     # compared relative to its largest value
     err = max(float((o1[:, [0, 1, 2, 4]] - o0[:, [0, 1, 2, 4]]).abs().max()),
@@ -277,13 +316,70 @@ def main() -> None:
         name="composite_fwd", route="cuda",
         source="gs_icp_slam_torch/csrc/composite_fwd.cu",
         replaces="gs_icp_slam_tpu/ops/composite_pallas.py:485",
-        launches=launches["composite_fwd"], max_abs_err=err,
+        launches=launches["composite_fwd"],
+        launches_path_a=launches_a["composite_fwd"], max_abs_err=err,
         ms=time_ms(lambda: composite_cuda.composite_fwd(*cargs)),
         plain_ms=time_ms(lambda: composite_cuda.composite_fwd_plain(*cargs),
                          reps=2, warmup=1),
         bound_ms=b, bound_by=by, library_ms=None,
         pairs_examined=work, splats_visible=int(bn.stats[0]),
         max_count=int(bn.counts.max())))
+
+    # K1-bwd on the compositor inputs and the real gradient of one opt step
+    # of path B's map: the newest keyframe's view, the mapping loss's g
+    # captured where the autograd Function hands it to the kernel
+    captured = {}
+    launch_bwd = composite_cuda.composite_bwd
+
+    def record(*a):
+        captured["args"] = a
+        return launch_bwd(*a)
+
+    kf = eng.kf_count - 1
+    composite_cuda.composite_bwd = record
+    try:
+        eng.prim.opt_step(map_params(m), eng.adam, m.live,
+                          eng._to_device(eng.kf_w2c[kf]),
+                          eng._to_device(eng.kf_rgb[kf]),
+                          eng._to_device(eng.kf_depth[kf]))
+    finally:
+        composite_cuda.composite_bwd = launch_bwd
+    bargs = tuple(a.detach() if torch.is_tensor(a) else a
+                  for a in captured["args"])
+    d1 = composite_cuda.composite_bwd(*bargs)
+    d0 = composite_cuda.composite_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    row_scale = d0[:10].abs().amax(1).clamp(min=1e-30)
+    row_err = ((d1[:10] - d0[:10]).abs().amax(1) / row_scale).tolist()
+    if not max(row_err) <= TOL_BWD_ROW:
+        problems.append(f"composite_bwd: row errors {row_err} > "
+                        f"{TOL_BWD_ROW} of the row's largest |gradient|")
+    walked, blended = composite_cuda.composite_bwd_work(*bargs)
+    counts_b, _, _, attr_b, out_b, nc_b = bargs[:6]
+    T, P = counts_b.shape[0], out_b.shape[2]
+    # each (tile, rank) cell the block walks sends one atomic per attribute
+    cells = int(torch.minimum(nc_b.amax(1), counts_b).sum())
+    nbytes = (T * 8 + int(counts_b.sum()) * 4 + attr_b.numel() * 4
+              + T * P * 4 * (1 + 1 + 5)        # t_final, n_contrib, g 0-4
+              + attr_b.numel() * 4             # the gradient written
+              + cells * 10 * 8)                # atomics: read + write
+    # from the kernel's code: ~12 operations per walked pair (offsets,
+    # power, gate), ~45 more per blended pair (exp, alpha, the ten terms)
+    b, by = bound(walked * 12.0 + blended * 45.0, nbytes)
+    kernels.append(dict(
+        name="composite_bwd", route="cuda",
+        source="gs_icp_slam_torch/csrc/composite_bwd.cu",
+        replaces="gs_icp_slam_tpu/ops/composite_pallas.py:547",
+        launches=launches["composite_bwd"],
+        launches_path_a=launches_a["composite_bwd"],
+        max_abs_err=float((d1 - d0).abs().max()),
+        row_err_vs_row_max=row_err,
+        ms=time_ms(lambda: composite_cuda.composite_bwd(*bargs)),
+        plain_ms=time_ms(lambda: composite_cuda.composite_bwd_plain(*bargs),
+                         reps=2, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=None, pairs_walked=walked,
+        pairs_blended=blended, cells_walked=cells,
+        max_n_contrib=int(nc_b.max())))
 
     if problems:
         for p in problems:

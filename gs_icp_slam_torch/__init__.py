@@ -8,16 +8,17 @@ by hand for Hopper (sources in `csrc/`, built on first use by
 `cuda_build.py`).  Each kernel wrapper keeps a plain PyTorch version of
 the same function, which it runs only for tensors on the CPU.
 
-Ported so far (the first slice): G-ICP tracking, keyframe insertion with
-covariance sharing, target export and forward rendering — the
-`SLAMEngine` path with no mapping iterations.
+Ported so far: the staged `SLAMEngine` — G-ICP tracking, keyframe
+insertion with covariance sharing, target export, mapping iterations
+(differentiable rendering, the SSIM/L1/depth loss, masked Adam, pruning)
+and evaluation renders.
 
 Layout:
-  utils/     quaternion / SE(3) / camera / SH / point-cloud math
+  utils/     quaternion / SE(3) / camera / SH / point-cloud math, losses
   ops/       kNN, 3x3 eigh, covariances, G-ICP, projection, rasterizer,
              and the kernel wrappers (nn_cuda, composite_cuda)
-  models/    the fixed-capacity Gaussian map
-  slam/      the staged engine
+  models/    the fixed-capacity Gaussian map and masked Adam
+  slam/      the staged engine and the mapping step (fused.py)
   datasets/  the procedural synthetic RGB-D sequence
   eval/      ATE
 """

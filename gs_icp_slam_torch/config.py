@@ -39,7 +39,7 @@ class GICPConfig:
 
 @dataclass(frozen=True)
 class OptConfig:
-    """3DGS optimizer hyperparameters (used by mapping, the next slice)."""
+    """3DGS optimizer hyperparameters (the mapping iterations')."""
 
     position_lr: float = 1.6e-6
     spatial_lr_scale: float = 2.5

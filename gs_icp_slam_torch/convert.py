@@ -15,6 +15,7 @@ from . import resolve_device
 from .config import (EngineConfig, GICPConfig, KeyframeConfig, MapConfig,
                      OptConfig, RenderConfig, SLAMConfig)
 from .models.gaussian_map import GaussianMap
+from .models.optimizer import AdamState
 from .ops.gicp import GICPTarget
 from .utils.camera import Intrinsics
 
@@ -37,6 +38,15 @@ def map_from_numpy(d: dict, device="cuda") -> GaussianMap:
         opacity_logit=_t(d["opacity_logit"], device, f32),
         trackable=_t(d["trackable"], device, torch.bool),
         live=_t(d["live"], device, torch.bool), n=int(np.asarray(d["n"])))
+
+
+def adam_from_numpy(d: dict, device="cuda") -> AdamState:
+    """AdamState from {"m": {param: array}, "v": {param: array}, "step":
+    int}, the JAX AdamState's moments and step as numpy."""
+    f32 = torch.float32
+    return AdamState(m={k: _t(a, device, f32) for k, a in d["m"].items()},
+                     v={k: _t(a, device, f32) for k, a in d["v"].items()},
+                     step=int(np.asarray(d["step"])))
 
 
 def target_from_numpy(d: dict, device="cuda") -> GICPTarget:

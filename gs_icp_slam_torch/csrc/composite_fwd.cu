@@ -16,7 +16,9 @@
 // rasterizer's `done` rule, equal to the Pallas kernel's exclusion of
 // every later splat).  out (T, 8, P): rows 0-2 rgb (no background),
 // 3 depth (sum of w * depth, not normalised), 4 final transmittance,
-// 5-7 zero.
+// 5-7 zero.  n_contrib (T, P) int32: one more than the run rank of the
+// last splat the pixel blended (0 for none), where the backward
+// (composite_bwd.cu) starts its reverse walk.
 //
 // What bounds it on the H100: arithmetic on the (pixel, splat) pairs each
 // pixel examines before it stops, ~30 fp32 operations each (one exp);
@@ -46,7 +48,8 @@ composite_fwd_kernel(const int* __restrict__ counts,
                      const int* __restrict__ starts,
                      const int* __restrict__ pair_slot,
                      const float* __restrict__ attr, int Vp, int ntx,
-                     int tile, float* __restrict__ out) {
+                     int tile, float* __restrict__ out,
+                     int* __restrict__ n_contrib) {
   __shared__ float s_attr[10][kBatch];
   const int t = blockIdx.x;
   const int P = tile * tile;
@@ -57,6 +60,7 @@ composite_fwd_kernel(const int* __restrict__ counts,
   const int start = starts[t];
 
   float tr = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, cd = 0.f;
+  int last = 0;
   bool done = false;
   for (int b0 = 0; b0 < count; b0 += kBatch) {
     // also the barrier that keeps the previous batch until all have read it
@@ -90,6 +94,7 @@ composite_fwd_kernel(const int* __restrict__ counts,
       cb = cb + w * s_attr[7][j];
       cd = cd + w * s_attr[9][j];
       tr = t_next;
+      last = b0 + j + 1;
     }
   }
   float* o = out + static_cast<size_t>(t) * 8 * P + pid;
@@ -101,6 +106,7 @@ composite_fwd_kernel(const int* __restrict__ counts,
   o[5 * P] = 0.f;
   o[6 * P] = 0.f;
   o[7 * P] = 0.f;
+  n_contrib[static_cast<size_t>(t) * P + pid] = last;
 }
 
 }  // namespace
@@ -108,16 +114,18 @@ composite_fwd_kernel(const int* __restrict__ counts,
 GS_EXPORT_ERROR_STRING
 
 // counts, starts (T,) int32; pair_slot (Np,) int32; attr (>= 10, Vp)
-// float32 channel-first; out (T, 8, tile*tile) float32; tile*tile <= 1024.
+// float32 channel-first; out (T, 8, tile*tile) float32; n_contrib
+// (T, tile*tile) int32; tile*tile <= 1024.
 extern "C" int composite_fwd_launch(const int* counts, const int* starts,
                                     const int* pair_slot, const float* attr,
                                     int T, int Vp, int ntx, int tile,
-                                    float* out, void* stream_ptr) {
+                                    float* out, int* n_contrib,
+                                    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int P = tile * tile;
   if (P < 1 || P > 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (T <= 0) return static_cast<int>(cudaGetLastError());
   composite_fwd_kernel<<<T, P, 0, stream>>>(counts, starts, pair_slot, attr,
-                                            Vp, ntx, tile, out);
+                                            Vp, ntx, tile, out, n_contrib);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,8 @@ prefix-counted shared buffers).  Parameter semantics match the reference:
   rotation      xyzw quaternion (un-normalized storage)
   opacity_logit inverse sigmoid of opacity
 
-This slice ports what tracking and rendering need; pruning, densification
-and `compact` arrive with mapping.
+Pruning clears `live` bits.  `compact` and `densify_clone_split`, which
+neither engine's main path calls, are not ported yet.
 """
 from __future__ import annotations
 
@@ -64,8 +64,12 @@ _PARAM_FIELDS = ("xyz", "f_dc", "f_rest", "log_scaling", "rotation",
 
 
 def map_params(m: GaussianMap) -> dict:
-    """The trainable-parameter subset (what Adam will see)."""
+    """The trainable-parameter subset (what Adam sees)."""
     return {f: getattr(m, f) for f in _PARAM_FIELDS}
+
+
+def with_params(m: GaussianMap, params: dict) -> GaussianMap:
+    return m._replace(**params)
 
 
 def empty_map(capacity: int, sh_degree: int = 0,
@@ -133,3 +137,14 @@ def trackable_export(m: GaussianMap, opacity_th: float, out_capacity: int):
     valid = torch.arange(order.shape[0], device=mask.device) < count
     return (m.xyz[order], m.rotation_normalized[order], m.scaling[order],
             valid)
+
+
+def prune_large_and_transparent(m: GaussianMap, min_opacity: float,
+                                extent: float | None) -> GaussianMap:
+    """prune_large_and_transparent (gaussian_model.py:580-592): clear the
+    live bit of slots with opacity < min_opacity or, given an extent, a
+    largest scale > 0.1 * extent."""
+    kill = m.opacity[:, 0] < min_opacity
+    if extent is not None:
+        kill = kill | (torch.max(m.scaling, dim=-1).values > 0.1 * extent)
+    return m._replace(live=m.live & ~kill)

@@ -6,8 +6,16 @@
   * EWA projection Sigma' = J W Sigma W^T J^T (2x2), + 0.3 px low-pass
   * conic = inverse of Sigma', radius = ceil(3 sqrt(lambda_max))
   * SH -> RGB with the 0.5 offset and clamp-to-positive
+
+Differentiable with autograd.  Clamps that gradients pass through use
+torch.maximum / torch.minimum, which split the gradient at a tie as
+jnp.maximum / jnp.minimum do (torch.clamp passes all of it): an RGB of
+exactly 0 after the 0.5 offset is common, since rgb_to_sh(0) + 0.5 rounds
+to 0 for black pixels.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -46,9 +54,24 @@ def tile_rect(mx: torch.Tensor, my: torch.Tensor, radius: torch.Tensor,
     return tx0, ty0, tx1, ty1
 
 
+@lru_cache(maxsize=None)
+def _scalar(c: float, dtype: torch.dtype, device: torch.device):
+    """A 0-dim constant, made once per device: a fresh one per call would
+    be a host-to-device copy in every projection."""
+    return torch.tensor(c, dtype=dtype, device=device)
+
+
+def _max(x: torch.Tensor, c: float) -> torch.Tensor:
+    return torch.maximum(x, _scalar(c, x.dtype, x.device))
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    return torch.minimum(_max(x, lo), _scalar(hi, x.dtype, x.device))
+
+
 def _cov3d_components(quat: torch.Tensor, scale: torch.Tensor):
     """Symmetric Sigma = R S^2 R^T as six (N,) components."""
-    n = torch.clamp(torch.sqrt(torch.sum(quat * quat, dim=-1)), min=1e-12)
+    n = _max(torch.sqrt(torch.sum(quat * quat, dim=-1)), 1e-12)
     x, y, z, w = (quat[:, 0] / n, quat[:, 1] / n, quat[:, 2] / n,
                   quat[:, 3] / n)
     r00 = 1.0 - 2.0 * (y * y + z * z)
@@ -98,8 +121,8 @@ def project_gaussians_packed(xyz: torch.Tensor, quat: torch.Tensor,
 
     lim_x = 1.3 * (width / (2.0 * fx))
     lim_y = 1.3 * (height / (2.0 * fy))
-    txz = torch.clamp(tx_ * inv_z, -lim_x, lim_x)
-    tyz = torch.clamp(ty_ * inv_z, -lim_y, lim_y)
+    txz = _clip(tx_ * inv_z, -lim_x, lim_x)
+    tyz = _clip(ty_ * inv_z, -lim_y, lim_y)
 
     sxx, sxy, sxz, syy, syz, szz = _cov3d_components(quat, scale * scale_modifier)
 
@@ -148,16 +171,15 @@ def project_gaussians_packed(xyz: torch.Tensor, quat: torch.Tensor,
     radius = torch.where(visible, radius_f, 0.0).to(torch.int32)
 
     if sh_degree == 0:
-        rr = torch.clamp(C0 * sh[:, 0, 0] + 0.5, min=0.0)
-        gg = torch.clamp(C0 * sh[:, 0, 1] + 0.5, min=0.0)
-        bb = torch.clamp(C0 * sh[:, 0, 2] + 0.5, min=0.0)
+        rr = _max(C0 * sh[:, 0, 0] + 0.5, 0.0)
+        gg = _max(C0 * sh[:, 0, 1] + 0.5, 0.0)
+        bb = _max(C0 * sh[:, 0, 2] + 0.5, 0.0)
     else:
         campos = -tvec @ R
         dirs = xyz - campos
-        dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True),
-                                  min=1e-12)
-        rgb = torch.clamp(eval_sh(sh_degree, sh.transpose(-1, -2), dirs) + 0.5,
-                          min=0.0)
+        dirs = dirs / _max(torch.linalg.norm(dirs, dim=-1, keepdim=True),
+                           1e-12)
+        rgb = _max(eval_sh(sh_degree, sh.transpose(-1, -2), dirs) + 0.5, 0.0)
         rr, gg, bb = rgb[:, 0], rgb[:, 1], rgb[:, 2]
 
     attr = torch.stack([mx, my, conic_a, conic_b, conic_c, rr, gg, bb,

@@ -1,4 +1,4 @@
-"""Tiled Gaussian rasterizer, forward (counterpart of the forward of
+"""Tiled differentiable Gaussian rasterizer (counterpart of
 gs_icp_slam_tpu/ops/rasterize.py `rasterize_tiled`).
 
 Stages, in order:
@@ -9,14 +9,20 @@ Stages, in order:
   4. one sort of the (tile << S) | slot keys: slots are depth ranks, so
      each tile's run comes out front to back; run starts by searchsorted,
      counts clamped to the front-most K;
-  5. the compositor, kernel K1-fwd (ops.composite_cuda);
+  5. the compositor, kernels K1-fwd / K1-bwd (ops.composite_cuda);
   6. the background blend through the final transmittance and the
      channel-first untiling;
   stats = [n_visible, vis_cap_dropped, tile_cap_dropped].
 
+Differentiable with respect to xyz, quat, scale, opacity and sh: the
+compositor is a torch.autograd.Function whose backward is K1-bwd, and
+projection and the compaction gather attr[:, order] are plain autograd.
+The sort and binning handle only integer keys, so the splat order is a
+constant of the backward, as in the CUDA rasterizer.
+
 Left behind from the JAX version (TPU mechanics): the power-of-two payload
-windows and their padding, the _compact_cols custom VJP and the 16-row
-payload.  The backward arrives with mapping.
+windows and their padding, the _compact_cols custom VJP, the cell_idx
+inverse map and the 16-row payload.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from .composite_cuda import composite_fwd
+from .composite_cuda import composite
 from .projection import project_gaussians_packed, tile_rect
 
 
@@ -85,7 +91,7 @@ def bin_splats(xyz, quat, scale, opacity, sh, w2c, live, fx, fy, cx, cy, *,
     vok = vslot < torch.clamp(vcount, max=V)
     attr_v = torch.cat([attr[:, order],
                         torch.zeros((10, 1), dtype=attr.dtype, device=dev)], 1)
-    mx, my = attr_v[0, :V], attr_v[1, :V]
+    mx, my = attr_v[0, :V].detach(), attr_v[1, :V].detach()
     radius = torch.where(vok, radius_i[order], 0).to(torch.float32)
 
     # ---- (D*D, V) tile pairs ----------------------------------------------
@@ -137,8 +143,8 @@ def rasterize_tiled(xyz, quat, scale, opacity, sh, w2c, live, bg,
                    sh_degree=sh_degree, width=width, height=height,
                    tile=tile, visible_cap=visible_cap, tile_span=tile_span,
                    tile_cap=tile_cap)
-    out8 = composite_fwd(b.counts, b.starts, b.pair_slot, b.attr_v, ntx,
-                         tile)                                   # (T, 8, P)
+    out8 = composite(b.counts, b.starts, b.pair_slot, b.attr_v, ntx,
+                     tile)                                       # (T, 8, P)
     tfin = out8[:, 4]
     color_px = out8[:, 0:3] + tfin[:, None, :] * bg.to(out8)[None, :, None]
     color = _untile(color_px, nty, ntx, tile, height, width)

@@ -8,10 +8,12 @@ Per frame, as in the JAX engine (engine.py:261-331):
   overlap + keyframe decision  1-NN (kernel K2), host scalars
   insert Gaussians ........... covariance sharing, tracker -> map
   trackable export -> target . covariance sharing, map -> tracker
-and `run()` renders every frame of the finished map for PSNR (kernel
-K1-fwd).  Mapping iterations (the training half: the compositor's backward,
-SSIM/L1 loss and masked Adam) arrive with the next slice; a config that
-asks for them raises.
+  mapping iterations ......... render a stored keyframe (K1-fwd), masked
+                               L1 + SSIM + depth loss, backward (K1-bwd),
+                               masked Adam, pruning every prune_interval
+and `run()` runs `mapping_iters_final` more iterations, then renders every
+frame of the finished map for PSNR (kernel K1-fwd).  Training stages 1/2
+and densification are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -26,14 +28,16 @@ from .. import resolve_device
 from ..config import SLAMConfig
 from ..datasets.base import RGBDSequence
 from ..eval.ate import ate_rmse
-from ..models import add_gaussians, empty_map, trackable_export
+from ..models import (adam_init, add_gaussians, empty_map, map_params,
+                      prune_large_and_transparent, trackable_export,
+                      with_params)
 from ..ops.gicp import (GICPTarget, gicp_align, make_source,
                         source_correspondences, target_from_gaussians,
                         target_from_points)
-from ..ops.rasterize import rasterize_tiled, tile_capacity
 from ..utils.pointcloud import downsample_pointcloud, make_downsample_filter
 from ..utils.quat import quat_multiply, rotmat_to_quat
 from ..utils.se3 import invert_se3, transform_points
+from .fused import make_mapping_primitives
 
 
 @dataclass
@@ -48,7 +52,9 @@ class SLAMResult:
     kf_total: int = 0            # keyframes ever selected
     kf_stored: int = 0           # keyframe slots in use (< total => evicted)
     # cap-overflow observability: the largest visible-cap and tile-cap
-    # drops over the evaluation renders (zero = no cap cost quality)
+    # drops, read after each frame's mapping iterations as the JAX engine
+    # reads them (zero = no cap cost quality); with no mapping iteration
+    # in the run, over the evaluation renders instead
     vis_cap_dropped: int = 0
     tile_cap_dropped: int = 0
 
@@ -56,10 +62,10 @@ class SLAMResult:
 class SLAMEngine:
     def __init__(self, dataset: RGBDSequence, cfg: SLAMConfig,
                  seed: int = 0, device="cuda"):
-        if (cfg.engine.mapping_iters_per_frame > 0
-                or cfg.engine.mapping_iters_final > 0):
+        if cfg.map.densify_enabled:
             raise NotImplementedError(
-                "mapping iterations arrive with the next slice")
+                "densification (densify_clone_split) arrives with the "
+                "map-maintenance slice")
         self.device = resolve_device(device)
         self.dataset = dataset
         self.cfg = cfg
@@ -71,6 +77,9 @@ class SLAMEngine:
 
         self.gmap = empty_map(cfg.map.capacity, cfg.map.sh_degree,
                               self.device)
+        self.adam = adam_init(map_params(self.gmap))
+        self.prim = make_mapping_primitives(cfg, self.device)
+        self.tile_cap = self.prim.raster.keywords["tile_cap"]  # K per tile
         self.target: Optional[GICPTarget] = None
 
         kf_cap = max(8, cfg.engine.keyframe_capacity)
@@ -84,13 +93,11 @@ class SLAMEngine:
 
         self.poses: List[np.ndarray] = []
         self.from_last_kf = 0
+        self.train_iter = 0
 
-        rc = cfg.render
-        self.tile_cap = tile_capacity(intr.width, intr.height, rc.tile_size,
-                                      rc.tile_span, rc.visible_capacity,
-                                      rc.max_per_tile)
-        self.bg = torch.tensor(rc.bg_color, dtype=torch.float32,
+        self.bg = torch.tensor(cfg.render.bg_color, dtype=torch.float32,
                                device=self.device)
+        self._last_stats: Optional[torch.Tensor] = None
         self._vis_dropped = 0
         self._pair_dropped = 0
 
@@ -135,6 +142,35 @@ class SLAMEngine:
         self.kf_total += 1
         self.new_keyframes.append(i)
 
+    def _mapping_iterations(self, n_iters: int):
+        """n_iters opt steps, each on one stored keyframe: the newest
+        unseen keyframes first, then uniform picks from self.rng (the
+        generator the keyframe eviction draws from, as in JAX)."""
+        params = map_params(self.gmap)
+        for _ in range(n_iters):
+            if self.kf_count == 0:
+                return
+            if self.new_keyframes:
+                i = self.new_keyframes.pop(0)
+            else:
+                i = int(self.rng.integers(self.kf_count))
+            self.train_iter += 1
+            if self.train_iter % self.cfg.map.prune_interval == 0:
+                self.gmap = prune_large_and_transparent(
+                    with_params(self.gmap, params),
+                    self.cfg.map.prune_min_opacity, self.cfg.map.prune_extent)
+            params, self.adam, _, self._last_stats = self.prim.opt_step(
+                params, self.adam, self.gmap.live,
+                self._to_device(self.kf_w2c[i]),
+                self._to_device(self.kf_rgb[i]),
+                self._to_device(self.kf_depth[i]))
+        # one device sync per mapping batch, as in the JAX engine
+        if self._last_stats is not None:
+            s = self._last_stats.tolist()
+            self._vis_dropped = max(self._vis_dropped, int(s[1]))
+            self._pair_dropped = max(self._pair_dropped, int(s[2]))
+        self.gmap = with_params(self.gmap, params)
+
     # ------------------------------------------------------------------
     def step(self, idx: int, frame) -> None:
         cfg = self.cfg
@@ -154,6 +190,7 @@ class SLAMEngine:
             self._store_keyframe(
                 frame, invert_se3(pose0_t).cpu().numpy())
             self.from_last_kf = 0
+            self._mapping_iterations(cfg.engine.mapping_iters_per_frame)
             return
 
         source = make_source(points, valid, cfg.gicp, trackable=trackable)
@@ -206,23 +243,23 @@ class SLAMEngine:
                 # covariance sharing, map -> tracker (mp_Tracker.py:286-288)
                 self.target = self._export_target()
 
+        self._mapping_iterations(cfg.engine.mapping_iters_per_frame)
+
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def render_eval(self, w2c: torch.Tensor, frame):
         """Render the map from one world-to-camera pose (kernel K1-fwd),
         with the GL-convention principal point ((W-1)/2, (H-1)/2) of the
         reference's renderer.  Returns (colour (3, H, W), PSNR over the
         pixels with depth, raster stats)."""
-        cfg, intr, rc = self.cfg, self.cfg.intr, self.cfg.render
+        intr = self.cfg.intr
         m = self.gmap
-        sh = torch.cat([m.f_dc[:, None, :], m.f_rest], dim=1)
-        out = rasterize_tiled(
+        out = self.prim.raster(
             m.xyz, m.rotation, torch.exp(m.log_scaling),
-            torch.sigmoid(m.opacity_logit[:, 0]), sh, w2c, m.live, self.bg,
+            torch.sigmoid(m.opacity_logit[:, 0]),
+            self.prim.sh_concat(map_params(m)), w2c, m.live, self.bg,
             intr.fx, intr.fy, (intr.width - 1) / 2.0,
-            (intr.height - 1) / 2.0, sh_degree=cfg.map.sh_degree,
-            width=intr.width, height=intr.height, tile=rc.tile_size,
-            visible_cap=rc.visible_capacity, tile_span=rc.tile_span,
-            tile_cap=self.tile_cap)
+            (intr.height - 1) / 2.0)
         gt_img = self._to_device(frame.rgb.transpose(2, 0, 1)).float() / 255.0
         gt_depth = self._to_device(frame.depth) / intr.depth_scale
         mask = (gt_depth > 0.0)[None]
@@ -242,6 +279,8 @@ class SLAMEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         fps = n / (time.perf_counter() - t0)
+        if self.cfg.engine.mapping_iters_final:
+            self._mapping_iterations(self.cfg.engine.mapping_iters_final)
 
         poses = np.stack(self.poses)
         gt = self.dataset.gt_poses
@@ -259,9 +298,10 @@ class SLAMEngine:
                 w2c = invert_se3(self._to_device(poses[i].astype(np.float32)))
                 _, p, stats = self.render_eval(w2c, self.dataset[i])
                 vals.append(float(p))
-                s = stats.tolist()
-                self._vis_dropped = max(self._vis_dropped, int(s[1]))
-                self._pair_dropped = max(self._pair_dropped, int(s[2]))
+                if self.train_iter == 0:
+                    s = stats.tolist()
+                    self._vis_dropped = max(self._vis_dropped, int(s[1]))
+                    self._pair_dropped = max(self._pair_dropped, int(s[2]))
             per_frame = np.asarray(vals)
             psnr_mean = float(per_frame.mean())
 

@@ -1,13 +1,18 @@
 """Reference quality values for the PyTorch port's chip smoke run.
 
 Runs the JAX `SLAMEngine` (tracking, keyframe insertion with covariance
-sharing, target export, render/eval; no mapping iterations) on the CPU at
-the configuration `chip_smoke.py` drives the port with, and prints one
-JSON line: ATE, Gaussian count, keyframe count and per-frame PSNR.  These
-are quality numbers, not speeds: `chip_smoke.py` holds the port's run on
-the GPU against them (PERF.md lists the values).
+sharing, target export, mapping iterations, render/eval) on the CPU at a
+configuration `chip_smoke.py` drives the port with, and prints one JSON
+line: ATE, Gaussian count, keyframe count and per-frame PSNR.  These are
+quality numbers, not speeds: `chip_smoke.py` holds the port's run on the
+GPU against them (PERF.md lists the values).
 
-    JAX_PLATFORMS=cpu python scripts/port_reference.py [--frames 36]
+Path A (no mapping; the defaults) and path B (bench.py's mapping
+settings):
+
+    JAX_PLATFORMS=cpu python scripts/port_reference.py
+    JAX_PLATFORMS=cpu python scripts/port_reference.py \
+        --mapping-iters 2 --init-opacity 0.5 --feature-lr 1e-2
 """
 from __future__ import annotations
 
@@ -25,6 +30,12 @@ def main():
     ap.add_argument("--width", type=int, default=1200)
     ap.add_argument("--height", type=int, default=680)
     ap.add_argument("--frames", type=int, default=36)
+    ap.add_argument("--mapping-iters", type=int, default=0,
+                    help="mapping iterations per frame")
+    ap.add_argument("--init-opacity", type=float, default=None,
+                    help="MapConfig.init_opacity (default: the config's)")
+    ap.add_argument("--feature-lr", type=float, default=None,
+                    help="OptConfig.feature_lr (default: the config's)")
     args = ap.parse_args()
 
     import numpy as np
@@ -39,11 +50,20 @@ def main():
                            target_capacity=1 << 16,
                            visible_capacity=1 << 16)
     cfg = cfg.replace(engine=dataclasses.replace(
-        cfg.engine, mapping_iters_per_frame=0, mapping_iters_final=0,
-        keyframe_capacity=64))
+        cfg.engine, mapping_iters_per_frame=args.mapping_iters,
+        mapping_iters_final=0, keyframe_capacity=64))
+    if args.init_opacity is not None:
+        cfg = cfg.replace(map=dataclasses.replace(
+            cfg.map, init_opacity=args.init_opacity))
+    if args.feature_lr is not None:
+        cfg = cfg.replace(opt=dataclasses.replace(
+            cfg.opt, feature_lr=args.feature_lr))
     res = SLAMEngine(seq, cfg).run(eval_render=True)
     print(json.dumps({
         "width": args.width, "height": args.height, "frames": args.frames,
+        "mapping_iters_per_frame": args.mapping_iters,
+        "init_opacity": cfg.map.init_opacity,
+        "feature_lr": cfg.opt.feature_lr,
         "ate_m": res.ate_rmse, "num_gaussians": res.num_gaussians,
         "kf_total": res.kf_total,
         "psnr_mean": res.psnr, "psnr_min": float(np.min(res.per_frame_psnr)),

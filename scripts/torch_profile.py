@@ -1,21 +1,25 @@
 """Where the PyTorch port's time goes on the GPU.
 
-Runs the port's staged SLAMEngine on the chip_smoke.py configuration
-(1200x680 synthetic, downsample 10, no mapping, frames made up front) and
-prints JSON lines:
+Runs the port's staged SLAMEngine on a chip_smoke.py configuration
+(1200x680 synthetic, downsample 10, frames made up front; by default path
+B: 2 mapping iterations per frame, init opacity 0.5, feature lr 1e-2;
+--mapping-iters 0 gives path A) and prints JSON lines:
 
   * "phases": seconds per engine phase, each timed on the host clock
     between device synchronizations (so the phases add up to the step
-    time plus the synchronizations' cost), and the Gauss-Newton iteration
-    count;
-  * "profile_tracking" and "profile_render": torch.profiler windows over a
-    second, unsynchronized run of the tracking frames and of the
-    evaluation renders: wall time, device busy time (kernel time summed)
-    and its share, kernel launches per frame or view, and the top device
-    kernels by time (the full tables, by device and by CPU time, go to
-    <out>/<name>_table.txt).
+    time plus the synchronizations' cost), the Gauss-Newton iteration
+    count, and the opt step's own phases: bin_splats (projection,
+    compaction, sorts), K1-fwd, the loss, the backward (K1-bwd inside it,
+    also reported alone) and Adam;
+  * "profile_tracking", "profile_opt_step" and "profile_render":
+    torch.profiler windows over unsynchronized runs of the tracking
+    frames, of opt steps and of the evaluation renders: wall time, device
+    busy time (kernel time summed) and its share, kernel launches per
+    frame, opt step or view, and the top device kernels by time (the full
+    tables, by device and by CPU time, go to <out>/<name>_table.txt).
 
-    python scripts/torch_profile.py [--frames 36] [--out output/torch_profile]
+    python scripts/torch_profile.py [--frames 36] [--mapping-iters 2]
+        [--out output/torch_profile]
 """
 from __future__ import annotations
 
@@ -29,10 +33,13 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+OPT_STEPS = 20  # opt steps in the profiled opt-step window
+
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=36)
+    ap.add_argument("--mapping-iters", type=int, default=2)
     ap.add_argument("--out", default="output/torch_profile")
     args = ap.parse_args()
 
@@ -44,9 +51,12 @@ def main():
     from gs_icp_slam_torch import cuda_build
     from gs_icp_slam_torch.config import synthetic_config
     from gs_icp_slam_torch.datasets import InMemorySequence, open_dataset
-    from gs_icp_slam_torch.slam import SLAMEngine
+    from gs_icp_slam_torch.models import map_params
+    from gs_icp_slam_torch.ops import composite_cuda
     from gs_icp_slam_torch.ops import rasterize as raster_mod
+    from gs_icp_slam_torch.slam import SLAMEngine
     from gs_icp_slam_torch.slam import engine as engine_mod
+    from gs_icp_slam_torch.slam import fused as fused_mod
 
     cuda_build.build_all()
     seq = InMemorySequence(open_dataset("synthetic", width=1200, height=680,
@@ -54,8 +64,12 @@ def main():
     cfg = synthetic_config(seq.intr, downsample_rate=10, capacity=1 << 18,
                            target_capacity=1 << 16, visible_capacity=1 << 16)
     cfg = cfg.replace(engine=dataclasses.replace(
-        cfg.engine, mapping_iters_per_frame=0, mapping_iters_final=0,
-        keyframe_capacity=64))
+        cfg.engine, mapping_iters_per_frame=args.mapping_iters,
+        mapping_iters_final=0, keyframe_capacity=64))
+    if args.mapping_iters:
+        cfg = cfg.replace(map=dataclasses.replace(cfg.map, init_opacity=0.5),
+                          opt=dataclasses.replace(cfg.opt, feature_lr=1e-2))
+    card = torch.cuda.get_device_name(0)
 
     # ---- phases: wrap the engine's building blocks with synced timers ----
     spent = collections.defaultdict(float)
@@ -75,22 +89,33 @@ def main():
             return out
         return wrapper
 
-    names = ("downsample_pointcloud", "target_from_points", "make_source",
-             "gicp_align", "source_correspondences", "add_gaussians",
-             "trackable_export", "target_from_gaussians", "rasterize_tiled")
-    # inside the rasterizer: binning (projection, compaction, sorts) and
-    # the compositor kernel
-    raster_names = ("bin_splats", "composite_fwd")
-    originals = {n: getattr(engine_mod, n) for n in names}
-    originals.update({n: getattr(raster_mod, n) for n in raster_names})
-    for n in names:
-        setattr(engine_mod, n, timed(n, originals[n]))
-    for n in raster_names:
-        setattr(raster_mod, n, timed(n, originals[n]))
+    # (module, attribute, phase name): the engine's stages; inside the
+    # rasterizer, binning and the compositor; inside the opt step, the
+    # loss, the backward, K1-bwd (inside the backward) and Adam
+    patches = [(engine_mod, n, n) for n in (
+        "downsample_pointcloud", "target_from_points", "make_source",
+        "gicp_align", "source_correspondences", "add_gaussians",
+        "trackable_export", "target_from_gaussians")]
+    patches += [(raster_mod, "bin_splats", "bin_splats"),
+                (raster_mod, "composite", "composite_fwd (K1-fwd)"),
+                (fused_mod, "mapping_loss", "loss"),
+                (fused_mod, "adam_step", "adam"),
+                (torch.autograd, "grad", "backward"),
+                (composite_cuda, "composite_bwd", "composite_bwd (K1-bwd)")]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+
+    def new_engine():
+        eng = SLAMEngine(seq, cfg, device="cuda")
+        eng.prim = eng.prim._replace(
+            opt_step=timed("opt_step", eng.prim.opt_step),
+            raster=timed("rasterize_tiled", eng.prim.raster))
+        return eng
+
+    for mod, attr, name in patches:
+        setattr(mod, attr, timed(name, getattr(mod, attr)))
     try:
-        eng = SLAMEngine(seq, cfg, device="cuda")
-        eng.step(0, seq[0])  # warm-up: first-call costs (cuSOLVER, caches)
-        eng = SLAMEngine(seq, cfg, device="cuda")
+        new_engine().step(0, seq[0])  # warm-up: first-call costs
+        eng = new_engine()
         spent.clear()
         calls.clear()
         iters.clear()
@@ -100,8 +125,9 @@ def main():
             eng.step(i, seq[i])
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        track = dict(spent)
+        track, track_calls = dict(spent), dict(calls)
         spent.clear()
+        calls.clear()
         t0 = time.perf_counter()
         for i in range(len(seq)):
             w2c = torch.linalg.inv(torch.as_tensor(
@@ -110,20 +136,19 @@ def main():
         torch.cuda.synchronize()
         render_s = time.perf_counter() - t0
     finally:
-        for n in names:
-            setattr(engine_mod, n, originals[n])
-        for n in raster_names:
-            setattr(raster_mod, n, originals[n])
-    print(json.dumps({
-        "phases": {"frames": len(seq), "step_s_total": step_s,
-                   "tracking_fps_synced": len(seq) / step_s,
-                   "per_phase_s": track, "calls": dict(calls),
-                   "gn_iterations": iters,
-                   "render_eval_s_total": render_s,
-                   "render_phase_s": dict(spent)}}), flush=True)
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+    print(json.dumps({"phases": {
+        "device": card, "frames": len(seq),
+        "mapping_iters_per_frame": args.mapping_iters,
+        "opt_steps": eng.train_iter, "step_s_total": step_s,
+        "fps_synced": len(seq) / step_s, "per_phase_s": track,
+        "calls": track_calls, "gn_iterations": iters,
+        "render_eval_s_total": render_s,
+        "render_phase_s": dict(spent)}}), flush=True)
 
-    # ---- profiles: unsynchronized runs of the tracking frames, then of
-    # the evaluation renders --------------------------------------------
+    # ---- profiles: unsynchronized runs of the tracking frames, of opt
+    # steps on the finished map, and of the evaluation renders -----------
     eng = SLAMEngine(seq, cfg, device="cuda")
     eng.step(0, seq[0])
     torch.cuda.synchronize()
@@ -132,6 +157,15 @@ def main():
         for i in range(1, len(seq)):
             eng.step(i, seq[i])
 
+    def opt_steps():
+        params, adam = map_params(eng.gmap), eng.adam
+        for n in range(OPT_STEPS):
+            i = n % eng.kf_count
+            params, adam, _, _ = eng.prim.opt_step(
+                params, adam, eng.gmap.live, eng._to_device(eng.kf_w2c[i]),
+                eng._to_device(eng.kf_rgb[i]),
+                eng._to_device(eng.kf_depth[i]))
+
     def render():
         for i in range(len(seq)):
             w2c = torch.linalg.inv(torch.as_tensor(
@@ -139,8 +173,12 @@ def main():
             eng.render_eval(w2c, seq[i])
 
     os.makedirs(args.out, exist_ok=True)
-    for name, fn, n_units in (("profile_tracking", track, len(seq) - 1),
-                              ("profile_render", render, len(seq))):
+    windows = [("profile_tracking", track, len(seq) - 1),
+               ("profile_opt_step", opt_steps, OPT_STEPS),
+               ("profile_render", render, len(seq))]
+    if not args.mapping_iters:
+        del windows[1]
+    for name, fn, n_units in windows:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -152,7 +190,8 @@ def main():
 
 def report(prof, name: str, wall: float, n_units: int, out: str) -> None:
     """Print one profiler window's device busy share, launches per unit
-    (frame or view) and top device kernels; write the full table."""
+    (frame, opt step or view) and top device kernels; write the full
+    table."""
     kernels = [e for e in prof.events()
                if getattr(e, "device_type", None) is not None
                and str(e.device_type).endswith("CUDA")]

@@ -1,7 +1,7 @@
-"""PyTorch port: the whole first slice — the staged SLAMEngine with no
-mapping iterations (tracking, covariance-shared map building, target
-export, render/eval) — against the JAX SLAMEngine on a 6-frame 128x96
-synthetic run, plus the map operations it uses.
+"""PyTorch port: the first slice — the staged SLAMEngine with no mapping
+iterations (tracking, covariance-shared map building, target export,
+render/eval) — against the JAX SLAMEngine on a 6-frame 128x96 synthetic
+run, plus the map operations it uses (mapping runs: test_torch_mapping).
 
 Tolerances: poses atol 1e-4 m and per-frame PSNR within 0.05 dB.  The JAX
 engine on the CPU takes its XLA nearest-neighbour paths, whose
@@ -145,11 +145,16 @@ def test_add_gaussians_and_trackable_export():
                                    rtol=1e-6, atol=1e-6)
 
 
-def test_mapping_iterations_not_yet_ported():
+def test_unported_options_raise():
+    """Training stages 1/2 (the fused-engine slice) and densification (the
+    map-maintenance slice) are not ported: the engine refuses them
+    instead of ignoring them."""
     _, jcfg = _cfg()
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     seq = t_open_dataset("synthetic", width=W, height=H, num_frames=2)
-    for kw in (dict(mapping_iters_per_frame=1), dict(mapping_iters_final=5)):
-        bad = cfg.replace(engine=dataclasses.replace(cfg.engine, **kw))
-        with pytest.raises(NotImplementedError, match="next slice"):
+    for bad in (cfg.replace(opt=dataclasses.replace(cfg.opt,
+                                                    training_stage=1)),
+                cfg.replace(map=dataclasses.replace(cfg.map,
+                                                    densify_enabled=True))):
+        with pytest.raises(NotImplementedError, match="slice"):
             TEngine(seq, bad, device="cpu")

@@ -7,7 +7,10 @@ with the card but without JAX:
 
 Tolerances: K2 and K3 are exact (the kernels round each operation of the
 distance as PyTorch does, and keep the lowest-index tie rule); K1-fwd
-atol 1e-5 (the same operation order; exp may differ by an ulp).
+atol 1e-5 and n_contrib exact (the same operation order; exp may differ
+by an ulp); K1-bwd each attribute row within 1e-4 of the row's largest
+|gradient| (the same per-pair arithmetic, but the pixel sums are taken
+by warp shuffles and atomics in an order that changes from run to run).
 """
 import numpy as np
 import pytest
@@ -72,10 +75,12 @@ def test_knn_kernel_missing_neighbours(dev):
     assert (d[:, 2:] == np.float32(3.4e38)).all()
 
 
-def _composite_inputs(saturated: bool, tile=32, ntx=3, nty=2, K=128, V=256):
+def _composite_inputs(saturated: bool, tile=32, ntx=3, nty=2, K=128, V=256,
+                      empty=()):
     T = ntx * nty
     rng = np.random.default_rng(7)
     counts = rng.integers(8, K, size=(T,)).astype(np.int32)
+    counts[list(empty)] = 0
     starts = (np.cumsum(counts) - counts).astype(np.int32)
     pair_slot = rng.integers(0, V, size=(int(counts.sum()),)).astype(np.int32)
     attr = np.zeros((10, V + 1), np.float32)
@@ -99,9 +104,41 @@ def test_composite_kernel_matches_plain(dev, saturated, tile):
         saturated, tile=tile)
     args = [torch.as_tensor(a).to(dev) for a in (counts, starts, pair_slot,
                                                  attr)]
-    got = composite_cuda.composite_fwd(*args, ntx, tile)
-    ref = composite_cuda.composite_fwd_plain(*args, ntx, tile)
+    got, nc = composite_cuda.composite_fwd(*args, ntx, tile)
+    ref, nc0 = composite_cuda.composite_fwd_plain(*args, ntx, tile)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    assert torch.equal(nc, nc0)
+
+
+@pytest.mark.parametrize("case", ["K128", "K128_saturated", "K4096",
+                                  "empty_tiles", "all_stop_early"])
+def test_composite_bwd_kernel_matches_plain(dev, case):
+    kw = dict(saturated=case in ("K128_saturated", "all_stop_early"))
+    if case == "K4096":
+        kw.update(K=4096, V=2048)
+    if case == "empty_tiles":
+        kw.update(empty=(1, 4))
+    counts, starts, pair_slot, attr, ntx, tile = _composite_inputs(**kw)
+    if case == "all_stop_early":  # wide, nearly opaque splats
+        attr[2:5] *= 0.05
+        attr[8] = 0.98
+    args = [torch.as_tensor(a).to(dev) for a in (counts, starts, pair_slot,
+                                                 attr)]
+    out, nc = composite_cuda.composite_fwd(*args, ntx, tile)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    g[:, 5:] = 0.0
+    g = g.to(dev)
+    got = composite_cuda.composite_bwd(*args, out, nc, g, ntx, tile)
+    ref = composite_cuda.composite_bwd_plain(*args, out, nc, g, ntx, tile)
+    torch.cuda.synchronize()
+    scale = ref.abs().amax(1, keepdim=True).clamp(min=1e-30)
+    assert float(((got - ref).abs() / scale).max()) <= 1e-4
+    assert float(ref.abs().max()) > 0
+    if case == "empty_tiles":
+        assert (nc[[1, 4]] == 0).all()
+    if case == "all_stop_early":  # every pixel stopped before its run ended
+        assert (out[:, 4] < 1e-2).all()
+        assert (nc < torch.as_tensor(counts, device=dev)[:, None]).all()
 
 
 def test_rasterize_on_the_card_matches_the_cpu(dev):
@@ -133,10 +170,12 @@ def test_rasterize_on_the_card_matches_the_cpu(dev):
     assert torch.equal(outs[1].stats.cpu(), outs[0].stats)
 
 
-def test_engine_on_the_card_matches_the_cpu(dev):
-    """The whole slice, 6 frames at 128x96: the CUDA kernels' run against
-    the plain versions' run on the CPU.  Poses atol 1e-4 m and PSNR within
-    0.05 dB (matrix products round differently on the two devices);
+@pytest.mark.parametrize("mapping_iters", [0, 2])
+def test_engine_on_the_card_matches_the_cpu(dev, mapping_iters):
+    """The staged engine, 6 frames at 128x96, with and without mapping
+    iterations: the CUDA kernels' run against the plain versions' run on
+    the CPU.  Poses atol 1e-4 m and PSNR within 0.05 dB (matrix products
+    round differently on the two devices, and K1-bwd sums by atomics);
     counts exact."""
     import dataclasses
 
@@ -149,7 +188,8 @@ def test_engine_on_the_card_matches_the_cpu(dev):
     cfg = synthetic_config(seq.intr, downsample_rate=4, capacity=1 << 14,
                            target_capacity=1 << 12, visible_capacity=1 << 12)
     cfg = cfg.replace(engine=dataclasses.replace(
-        cfg.engine, mapping_iters_per_frame=0, mapping_iters_final=0))
+        cfg.engine, mapping_iters_per_frame=mapping_iters,
+        mapping_iters_final=0))
     gpu = SLAMEngine(seq, cfg, device=dev).run()
     cpu = SLAMEngine(seq, cfg, device="cpu").run()
     np.testing.assert_allclose(gpu.poses, cpu.poses, atol=1e-4)

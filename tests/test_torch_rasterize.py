@@ -1,13 +1,26 @@
-"""PyTorch port: projection, the compositor K1-fwd and the tiled
-rasterizer's forward, held against the JAX package.
+"""PyTorch port: projection, the compositor K1-fwd / K1-bwd and the tiled
+rasterizer, forward and gradients, held against the JAX package.
 
 The JAX rasterizer runs its XLA path (use_pallas=False); the compositor's
-plain version is also held against the Pallas kernel in interpret mode.
-Tolerance atol 1e-5 on colour, depth and transmittance: the two sides
-compute the same per-splat terms, but the XLA path takes transmittance as
-a cumprod and colour as a dot product, the port a sequential loop, so sums
-differ in the last ulps (depth ~3 m: 1e-5 is ~3 ulp there).
+plain versions are also held against the Pallas kernel and its VJP in
+interpret mode.  Tolerances:
+  * forward: atol 1e-5 on colour, depth and transmittance: the two sides
+    compute the same per-splat terms, but the XLA path takes transmittance
+    as a cumprod and colour as a dot product, the port a sequential loop,
+    so sums differ in the last ulps (depth ~3 m: 1e-5 is ~3 ulp there);
+  * K1-bwd against the Pallas VJP: each attribute row within 2e-4 of that
+    row's largest |gradient|.  The port recovers the transmittance before
+    a splat by division and sums pixels in another order than the Pallas
+    block cumprod and block sums: float32 rounding, ~1e-6 of the row's
+    scale measured;
+  * rasterize_tiled gradients against jax.grad, the XLA compositor on
+    every scene and the Pallas one on the first (its VJP is also held
+    against the plain backward above): atol 1e-4 after dividing by the largest |JAX gradient| of the
+    parameter (the JAX suite holds Pallas against XLA at 1e-3);
+  * the float64 gradcheck of the plain backward: torch's defaults
+    (eps 1e-6, atol 1e-5, rtol 1e-3) on splats away from every gate.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +38,18 @@ from gs_icp_slam_torch.ops.rasterize import tile_capacity
 W, H = 64, 48
 FX = FY = 60.0
 CX, CY = (W - 1) / 2.0, (H - 1) / 2.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's plain loops here are many short ops on small tensors:
+    intra-op threads only contend with JAX's pool and the other test
+    workers (this file ran in 57 s with the default threads, 34 s with
+    one, on an 8-core CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _scene(n=64, seed=0, spread=0.8, sh_deg=0):
@@ -150,11 +175,15 @@ def composite_case(request):
     attr[:, V] = 0.0
     comp = make_composite_win(T, ntx, tile, K, interpret=True)
     cell_idx = build_cell_idx_np(counts, starts, pair_slot, T, K, V)
-    out = np.asarray(comp(jnp.asarray(counts), jnp.asarray(starts),
-                          jnp.asarray(pair_slot), jnp.asarray(cell_idx),
-                          jnp.asarray(attr)))
+    out, vjp = jax.vjp(lambda a: comp(
+        jnp.asarray(counts), jnp.asarray(starts), jnp.asarray(pair_slot),
+        jnp.asarray(cell_idx), a), jnp.asarray(attr))
+    g = np.zeros((T, 8, tile * tile), np.float32)
+    g[:, :5] = rng.normal(size=(T, 5, tile * tile))
     return dict(counts=counts, starts=starts, pair_slot=pair_slot,
-                attr=attr, ntx=ntx, tile=tile, out=out, saturated=sat)
+                attr=attr, ntx=ntx, tile=tile, out=np.asarray(out),
+                g=g, d_attr=np.asarray(vjp(jnp.asarray(g))[0]),
+                saturated=sat)
 
 
 def test_composite_plain_matches_pallas(composite_case):
@@ -162,7 +191,7 @@ def test_composite_plain_matches_pallas(composite_case):
     got = composite_cuda.composite_fwd(
         torch.as_tensor(c["counts"]), torch.as_tensor(c["starts"]),
         torch.as_tensor(c["pair_slot"]), torch.as_tensor(c["attr"][:10]),
-        c["ntx"], c["tile"]).numpy()
+        c["ntx"], c["tile"])[0].numpy()
     np.testing.assert_allclose(got[:, 0:3], c["out"][:, 0:3], atol=1e-5)
     np.testing.assert_allclose(got[:, 3], c["out"][:, 3], atol=2e-5)
     np.testing.assert_allclose(got[:, 4], c["out"][:, 4], atol=1e-5)
@@ -181,11 +210,16 @@ def test_composite_work_count(composite_case):
 
 def test_composite_empty_tiles():
     counts = torch.zeros(4, dtype=torch.int32)
-    out = composite_cuda.composite_fwd(counts, counts.clone(),
-                                       torch.zeros(1, dtype=torch.int32),
-                                       torch.zeros((10, 1)), 2, 16)
+    out, n_contrib = composite_cuda.composite_fwd(
+        counts, counts.clone(), torch.zeros(1, dtype=torch.int32),
+        torch.zeros((10, 1)), 2, 16)
     assert out.shape == (4, 8, 256)
     assert (out[:, 4] == 1).all() and (out[:, :4] == 0).all()
+    assert (n_contrib == 0).all()
+    d = composite_cuda.composite_bwd(
+        counts, counts.clone(), torch.zeros(1, dtype=torch.int32),
+        torch.zeros((10, 1)), out, n_contrib, torch.ones_like(out), 2, 16)
+    assert d.shape == (10, 1) and (d == 0).all()
 
 
 def test_wrappers_check_inputs():
@@ -198,6 +232,113 @@ def test_wrappers_check_inputs():
                                      torch.zeros(2, dtype=torch.int32),
                                      torch.zeros(1, dtype=torch.int32),
                                      torch.zeros((9, 1)), 2, 16)
+    z = torch.zeros(2, dtype=torch.int32)
+    out = torch.zeros((2, 8, 256))
+    with pytest.raises(ValueError):  # n_contrib of the wrong shape
+        composite_cuda.composite_bwd(z, z, torch.zeros(1, dtype=torch.int32),
+                                     torch.zeros((10, 1)), out,
+                                     torch.zeros((2, 100), dtype=torch.int32),
+                                     out, 2, 16)
+
+
+# ------------------------------------------------------- K1-bwd ----------
+
+def test_composite_bwd_plain_matches_pallas_vjp(composite_case):
+    c = composite_case
+    args = [torch.as_tensor(c[k]) for k in ("counts", "starts", "pair_slot")]
+    attr = torch.as_tensor(c["attr"][:10].copy())
+    out, n_contrib = composite_cuda.composite_fwd(*args, attr, c["ntx"],
+                                                  c["tile"])
+    got = composite_cuda.composite_bwd(*args, attr, out, n_contrib,
+                                       torch.as_tensor(c["g"]), c["ntx"],
+                                       c["tile"]).numpy()
+    want = c["d_attr"][:10]
+    for r in range(10):
+        scale = np.abs(want[r]).max()
+        assert scale > 0, r
+        np.testing.assert_allclose(got[r] / scale, want[r] / scale,
+                                   atol=2e-4, err_msg=f"row {r}")
+    if c["saturated"]:  # the stop rule cut most runs short
+        assert float((n_contrib < torch.as_tensor(c["counts"])[:, None]
+                      .int()).float().mean()) > 0.5
+
+
+def _tiny_composite(dtype):
+    """Two 4x4 tiles, six splats of moderate opacity: no pixel reaches
+    the stop rule or the alpha clamp, and the splats are wide enough that
+    every pixel is far from the 1/255 gate."""
+    rng = np.random.default_rng(11)
+    counts = np.array([4, 3], np.int32)
+    starts = np.array([0, 4], np.int32)
+    pair_slot = np.array([0, 1, 2, 3, 2, 4, 5], np.int32)
+    attr = np.zeros((10, 7))
+    attr[0] = rng.uniform(0, 8, 7)
+    attr[1] = rng.uniform(0, 4, 7)
+    attr[2] = rng.uniform(0.02, 0.05, 7)
+    attr[4] = rng.uniform(0.02, 0.05, 7)
+    attr[3] = 0.3 * np.sqrt(attr[2] * attr[4])
+    attr[5:8] = rng.uniform(0, 1, (3, 7))
+    attr[8] = rng.uniform(0.2, 0.5, 7)
+    attr[9] = rng.uniform(0.5, 5, 7)
+    attr[:, 6] = 0.0
+    ints = [torch.as_tensor(a) for a in (counts, starts, pair_slot)]
+    return ints, torch.as_tensor(attr, dtype=dtype), rng
+
+
+class _PlainComposite(torch.autograd.Function):
+    """The plain forward with the plain backward as its gradient."""
+
+    @staticmethod
+    def forward(ctx, attr, counts, starts, pair_slot):
+        out, n_contrib = composite_cuda.composite_fwd_plain(
+            counts, starts, pair_slot, attr, 2, 4)
+        ctx.save_for_backward(counts, starts, pair_slot, attr, out,
+                              n_contrib)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        counts, starts, pair_slot, attr, out, n_contrib = ctx.saved_tensors
+        return (composite_cuda.composite_bwd_plain(
+            counts, starts, pair_slot, attr, out, n_contrib, g, 2, 4),
+            None, None, None)
+
+
+def test_composite_bwd_plain_gradcheck_float64():
+    ints, attr, rng = _tiny_composite(torch.float64)
+    out, _ = composite_cuda.composite_fwd_plain(*ints, attr, 2, 4)
+    assert float(out[:, 4].min()) > 0.05  # far from the stop rule
+    attr.requires_grad_(True)
+
+    def rows(a):  # the rows the backward differentiates
+        return _PlainComposite.apply(a, *ints)[:, :5]
+
+    assert torch.autograd.gradcheck(rows, (attr,))
+    # and against autograd through the plain forward loop itself
+    g = torch.as_tensor(rng.normal(size=(2, 8, 16)))
+    g[:, 5:] = 0.0
+    ref, = torch.autograd.grad(
+        composite_cuda.composite_fwd_plain(*ints, attr, 2, 4)[0], attr, g)
+    got, = torch.autograd.grad(_PlainComposite.apply(attr, *ints), attr, g)
+    torch.testing.assert_close(got, ref, rtol=1e-9, atol=1e-9)
+
+
+def test_composite_function_backward_is_k1_bwd():
+    """The port's autograd Function: its attr gradient is composite_bwd's
+    output on the forward's saved state, and the integer inputs take
+    none."""
+    ints, attr, rng = _tiny_composite(torch.float32)
+    attr.requires_grad_(True)
+    out = composite_cuda.composite(*ints, attr, 2, 4)
+    g = torch.as_tensor(rng.normal(size=(2, 8, 16)), dtype=torch.float32)
+    out.backward(g)
+    with torch.no_grad():
+        o, n_contrib = composite_cuda.composite_fwd(*ints, attr, 2, 4)
+        want = composite_cuda.composite_bwd(*ints, attr, o, n_contrib, g, 2,
+                                            4)
+    assert (attr.grad != 0).any()
+    torch.testing.assert_close(attr.grad, want, rtol=0, atol=0)
+    assert all(t.grad is None for t in ints)
 
 
 # ------------------------------------------------- rasterize_tiled -------
@@ -261,6 +402,55 @@ def test_rasterize_depth_ties_fronto_parallel_wall():
     jo, to = _both(scene, _pose("identity"), tile_span=3, tile_cap=256,
                    visible_cap=256)
     _assert_same(jo, to)
+
+
+@pytest.mark.parametrize("seed,n,sh_deg,use_pallas,behind", [
+    (5, 32, 0, False, False),   # tests/test_rasterize.py:120-142's scene
+    (5, 32, 0, True, False),
+    (8, 48, 0, False, False),   # tests/test_rasterize.py:236-257's scene
+    (9, 48, 1, False, False),   # view-dependent colour
+    (10, 48, 0, False, True),   # splats behind the near plane
+])
+def test_rasterize_gradients_match_jax(seed, n, sh_deg, use_pallas, behind):
+    """d(loss)/d(xyz, quat, scale, opacity, sh) through the whole
+    rasterizer, the loss reading colour, depth and final transmittance."""
+    scene = _scene(n, seed=seed, sh_deg=sh_deg)
+    if behind:
+        scene[0][:4, 2] = [0.1, 0.15, -0.5, 0.19]
+    w2c = _pose("rotated" if sh_deg else "identity")
+    rng = np.random.default_rng(seed + 100)
+    wc = rng.uniform(0, 1, (3, H, W)).astype(np.float32)
+    wd = rng.uniform(0, 1, (H, W)).astype(np.float32)
+    wt = rng.uniform(0, 1, (H, W)).astype(np.float32)
+    kw = dict(sh_degree=sh_deg, width=W, height=H, tile_span=7,
+              tile_cap=128, visible_cap=128)
+
+    def j_loss(*p):
+        o = j_rasterize(*p, jnp.asarray(w2c), jnp.asarray(scene[5]),
+                        jnp.zeros(3), FX, FY, CX, CY, use_pallas=use_pallas,
+                        want_used=False, **kw)
+        return (jnp.sum(o.color * wc) + jnp.sum(o.depth * wd)
+                + jnp.sum(o.t_final * wt))
+
+    jg = jax.grad(j_loss, argnums=(0, 1, 2, 3, 4))(
+        *[jnp.asarray(a) for a in scene[:5]])
+    leaves = [torch.tensor(a, requires_grad=True) for a in scene[:5]]
+    o = t_rasterize(*leaves, torch.as_tensor(w2c), torch.as_tensor(scene[5]),
+                    torch.zeros(3), FX, FY, CX, CY, **kw)
+    loss = ((o.color * torch.as_tensor(wc)).sum()
+            + (o.depth * torch.as_tensor(wd)).sum()
+            + (o.t_final * torch.as_tensor(wt)).sum())
+    loss.backward()
+    for name, a, t in zip(("xyz", "quat", "scale", "opacity", "sh"), jg,
+                          leaves):
+        a, b = np.asarray(a), t.grad.numpy()
+        assert np.isfinite(b).all(), name
+        scale = np.abs(a).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(b / scale, a / scale, atol=1e-4,
+                                   err_msg=name)
+    if behind:  # culled splats take no gradient
+        assert (leaves[0].grad[:4] == 0).all()
 
 
 def test_tile_capacity_at_bench_geometry():
