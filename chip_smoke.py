@@ -4,23 +4,38 @@
 
 1. builds the port's CUDA kernels from gs_icp_slam_torch/csrc (one nvcc per
    source, all at once) and prints the build time;
-2. drives the port's two paths through their user entry point, the staged
-   SLAMEngine, on the 36-frame synthetic sequence at 1200x680, downsample
-   10, map capacity 2^18, target 2^16, visible cap 2^16, keyframe store 64:
-     A. no mapping iterations: G-ICP tracking, covariance-shared map
-        building, target export, render/eval;
-     B. bench.py's mapping settings: 2 mapping iterations per frame
-        (render a keyframe, SSIM/L1/depth loss, the compositor's backward,
-        masked Adam), init opacity 0.5, feature lr 1e-2.
+2. drives the port's paths through their user entry points on the 36-frame
+   synthetic sequence at 1200x680, downsample 10, map capacity 2^18,
+   target 2^16, visible cap 2^16, keyframe store 64:
+     A. the staged SLAMEngine, no mapping iterations: G-ICP tracking,
+        covariance-shared map building, target export, render/eval;
+     B. the staged SLAMEngine with bench.py's mapping settings: 2 mapping
+        iterations per frame (render a keyframe, SSIM/L1/depth loss, the
+        compositor's backward, masked Adam), init opacity 0.5, feature lr
+        1e-2;
+     C. FusedEngine.run on bench.py's scenario (the same settings, grid
+        k-NN source covariances, capacity buckets, the reservoir keyframe
+        store), replaying the JAX engine's recorded random draws; then one
+        refine call (64 mapping iterations);
+     D. the dense compositors' entry points, make_composite (K4a) at the
+        rasterizer ablation's geometry (scripts/profile_raster.py: 3,225
+        tiles of 16x16, K 256) and make_composite_dyn (K4b) at the kernel
+        smoke's (scripts/tpu_kernel_smoke.py: 48 tiles, K 128) and at 3,225
+        tiles, forward and backward through autograd.
    Every kernel's launch count is zeroed just before each path and read
-   just after it; each kernel of the path must be > 0, and K1-bwd must
-   run once per opt step of path B.  ATE, Gaussian count, keyframe count
-   and mean PSNR are held against the JAX package's values for the same
-   runs (scripts/port_reference.py on the CPU);
+   just after it; each kernel of the path must be > 0, K1-bwd must run once
+   per opt step of paths B and C, and 64 times in the refine call.  ATE,
+   Gaussian count, keyframe count and mean PSNR are held against the JAX
+   package's values for the same runs (scripts/port_reference.py on the
+   CPU); path C also prints its host syncs per frame (torch's CUDA sync
+   debug mode, counted inside the fused step);
 3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes, and times kernel, plain version and, where one
-   exists, a single PyTorch library call computing the same function
-   (CUDA events), beside the least time the card could take (bound);
+   main path's shapes (K4a/K4b: inputs as scripts/tpu_kernel_smoke.py
+   makes them, plus zero-opacity and empty tiles, the forward also
+   against a numpy front-to-back oracle on a few tiles), and times kernel,
+   plain version and, where one exists, a single PyTorch library call
+   computing the same function (CUDA events), beside the least time the
+   card could take (bound);
 4. prints a "kernels" JSON line and, as the last line,
    {"ok": true, "device": {...}}.  The card's name and power limit
    (nvidia-smi) is the first line of output.
@@ -36,6 +51,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
@@ -50,6 +66,32 @@ REF_A = dict(ate_m=0.0022180734651930383, num_gaussians=49680, kf_total=6,
 # --feature-lr 1e-2):
 REF_B = dict(ate_m=0.0018647520233165142, num_gaussians=49680, kf_total=6,
              psnr_mean=23.574109925164116)
+# Path C, FusedEngine on bench.py's scenario (scripts/port_reference.py
+# --fused), and the random draws its step took, [maxval, value] in order,
+# then the 64 draws of one refine call:
+REF_C = dict(ate_m=0.0018625356366780827, num_gaussians=49680,
+             kf_total=6, kf_count=6,
+             psnr_mean=23.918221314748127, vis_cap_dropped=0,
+             tile_cap_dropped=0)
+DRAWS_C = [
+    [64, 14], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0],
+    [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0],
+    [1, 0], [1, 0], [1, 0], [64, 58], [2, 1], [2, 0], [2, 0], [2, 1], [2, 1],
+    [2, 0], [2, 0], [2, 0], [2, 0], [2, 0], [64, 21], [3, 2], [3, 1], [3, 0],
+    [3, 2], [3, 2], [3, 1], [3, 2], [3, 0], [3, 2], [3, 0], [3, 0], [3, 2],
+    [3, 0], [3, 0], [3, 2], [3, 2], [3, 0], [3, 2], [3, 0], [3, 1], [64, 25],
+    [4, 3], [4, 3], [4, 0], [4, 0], [4, 2], [4, 2], [4, 0], [4, 1], [4, 3],
+    [4, 1], [4, 0], [4, 2], [4, 1], [4, 2], [64, 19], [5, 0], [5, 0], [5, 4],
+    [5, 3], [5, 4], [5, 3], [64, 7], [6, 1], [6, 1]]
+REFINE_DRAWS_C = [
+    [6, 5], [6, 4], [6, 3], [6, 3], [6, 3], [6, 0], [6, 3], [6, 2], [6, 5],
+    [6, 1], [6, 1], [6, 1], [6, 4], [6, 5], [6, 4], [6, 2], [6, 1], [6, 3],
+    [6, 5], [6, 2], [6, 1], [6, 2], [6, 5], [6, 0], [6, 0], [6, 2], [6, 4],
+    [6, 3], [6, 2], [6, 0], [6, 5], [6, 1], [6, 1], [6, 0], [6, 5], [6, 3],
+    [6, 4], [6, 0], [6, 4], [6, 0], [6, 2], [6, 0], [6, 3], [6, 1], [6, 3],
+    [6, 2], [6, 4], [6, 3], [6, 0], [6, 5], [6, 2], [6, 1], [6, 2], [6, 4],
+    [6, 1], [6, 3], [6, 3], [6, 2], [6, 0], [6, 0], [6, 0], [6, 4], [6, 1],
+    [6, 3]]
 # Tolerances: ATE within 0.5 mm and mean PSNR within 0.1 dB (float32 sums
 # in another order, and near-tie neighbour picks of the XLA distance form
 # the reference takes on the CPU); counts exact (a difference would be a
@@ -59,6 +101,10 @@ TOL_PSNR_DB = 0.1
 # K1-bwd against its plain version: each attribute row within this share
 # of the row's largest |gradient| (pixel sums in another order, by atomics)
 TOL_BWD_ROW = 1e-4
+# K4a/K4b forward against the numpy front-to-back oracle (float32, the same
+# operation order; exp may differ by an ulp and flip a pair across the
+# 1/255 alpha gate, worth up to ~4e-3 of a colour)
+TOL_ORACLE = 5e-3
 
 WIDTH, HEIGHT, FRAMES = 1200, 680, 36
 MAPPING_ITERS = 2
@@ -101,6 +147,271 @@ def bound(flops: float, nbytes: float):
     return (max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes")
 
 
+# K4a/K4b geometries: the rasterizer ablation's (scripts/profile_raster.py:
+# 1200x680 in 16x16 tiles, 75 x 43 = 3,225 tiles, K 256) and the kernel
+# smoke's (scripts/tpu_kernel_smoke.py: 48 tiles in rows of 8, K 128):
+# (tiles, tiles per row, K, with counts)
+DENSE_TILE = 16
+DENSE_GEOMETRIES = {
+    "K4a_ablation": (3225, 75, 256, False),
+    "K4b_smoke": (48, 8, 128, True),
+    "K4b_ablation": (3225, 75, 256, True),
+}
+DENSE_KERNELS = ("composite_dense_fwd", "composite_dense_bwd",
+                 "composite_dyn_fwd", "composite_dyn_bwd")
+
+
+def dense_inputs(T, ntx, tile, K, seed):
+    """K4 inputs as scripts/tpu_kernel_smoke.py:107-117 makes them, plus a
+    zero-opacity tile (tile 2) and, through counts, an empty tile (0) and
+    a full one (1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, K + 1, size=(T,)).astype(np.int32)
+    counts[[0, 1]] = (0, K)
+    a = np.zeros((T, 16, K), np.float32)
+    a[:, 0] = rng.uniform(0, ntx * tile, (T, K))
+    a[:, 1] = rng.uniform(0, (T // ntx) * tile, (T, K))
+    a[:, 2] = 0.05
+    a[:, 4] = 0.05
+    a[:, 5:8] = rng.uniform(0, 1, (T, 3, K))
+    a[:, 8] = rng.uniform(0.1, 0.9, (T, K))
+    a[:, 9] = rng.uniform(0.5, 5.0, (T, K))
+    a[2, 8] = 0.0
+    return counts, a
+
+
+def oracle_rgb(a, count, t, ntx, tile):
+    """numpy front-to-back composite of tile t's first `count` splats (the
+    oracle of scripts/tpu_kernel_smoke.py:74-100, float32, with the done
+    rule: the first splat that would take a pixel's transmittance below
+    1e-4 stops the pixel)."""
+    import numpy as np
+
+    f32 = np.float32
+    P = tile * tile
+    pid = np.arange(P)
+    px = ((t % ntx) * tile + pid % tile).astype(f32)
+    py = ((t // ntx) * tile + pid // tile).astype(f32)
+    tr = np.ones(P, f32)
+    rgb = np.zeros((3, P), f32)
+    done = np.zeros(P, bool)
+    for k in range(count):
+        s = a[:, k]
+        dx, dy = px - s[0], py - s[1]
+        power = f32(-0.5) * (s[2] * dx * dx + s[4] * dy * dy) - s[3] * dx * dy
+        araw = s[8] * np.exp(np.minimum(power, f32(0)))
+        gate = (power <= 0) & (araw >= f32(1.0 / 255.0)) & ~done
+        alpha = np.where(gate, np.minimum(araw, f32(0.99)), f32(0))
+        t_next = tr * (f32(1) - alpha)
+        stop = gate & (t_next < f32(1e-4))
+        done |= stop
+        inc = gate & ~stop
+        rgb += np.where(inc, alpha * tr, f32(0)) * s[5:8, None]
+        tr = np.where(inc, t_next, tr)
+    return rgb
+
+
+def dense_kernel_phases(dense, launches_d, composite_cuda, problems):
+    """K4a/K4b forward and backward against their plain versions (and the
+    forward against the numpy oracle) on path D's inputs; timed beside
+    their bounds.  Returns the four "kernels" entries."""
+    import numpy as np
+    import torch
+
+    rows = []
+    for kind, key, line_fwd, line_bwd in (
+            ("dense", "K4a_ablation", 101, 114),
+            ("dyn", "K4b_ablation", 247, 289)):
+        for d in (dense[key], dense["K4b_smoke"]) if kind == "dyn" else (
+                dense[key],):
+            c = d["counts"] if d["dyn"] else None
+            args = (c, d["attrs"], d["ntx"], DENSE_TILE)
+            out, nc = composite_cuda.composite_dense_fwd(*args)
+            out0, nc0 = composite_cuda.composite_dense_fwd_plain(*args)
+            torch.cuda.synchronize()
+            err_f = max(float((out[:, [0, 1, 2, 4]] - out0[:, [0, 1, 2, 4]])
+                              .abs().max()),
+                        float((out[:, 3] - out0[:, 3]).abs().max())
+                        / max(float(out0[:, 3].abs().max()), 1.0))
+            if not torch.equal(nc, nc0) or err_f > 1e-4:
+                problems.append(f"{key if d is dense[key] else 'K4b_smoke'} "
+                                f"fwd: max error {err_f}, n_contrib differs "
+                                f"at {int((nc != nc0).sum())} pixels")
+            outs = out.cpu().numpy()
+            for t in range(0, d["T"], max(1, d["T"] // 7)):
+                cnt = int(d["counts_np"][t]) if d["dyn"] else d["K"]
+                err_o = float(np.abs(outs[t, 0:3] - oracle_rgb(
+                    d["attrs_np"][t], cnt, t, d["ntx"], DENSE_TILE)).max())
+                if not err_o <= TOL_ORACLE:
+                    problems.append(f"{kind} tile {t}: oracle mismatch "
+                                    f"{err_o}")
+            bargs = (c, d["attrs"], out, nc, d["g"], d["ntx"], DENSE_TILE)
+            g1 = composite_cuda.composite_dense_bwd(*bargs)
+            g0 = composite_cuda.composite_dense_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            scale = g0[:, :10].abs().amax((0, 2)).clamp(min=1e-30)
+            row_err = ((g1[:, :10] - g0[:, :10]).abs().amax((0, 2))
+                       / scale).tolist()
+            if not max(row_err) <= TOL_BWD_ROW or not torch.equal(
+                    g1, d["grad"]):
+                problems.append(f"{kind} bwd: row errors {row_err} > "
+                                f"{TOL_BWD_ROW}, or the entry point's "
+                                "gradient differs from the kernel's")
+        d = dense[key]
+        c = d["counts"] if d["dyn"] else None
+        T, K = d["T"], d["K"]
+        P = DENSE_TILE ** 2
+        args = (c, d["attrs"], d["ntx"], DENSE_TILE)
+        out, nc = composite_cuda.composite_dense_fwd(*args)
+        cnt = d["counts_np"].clip(0, K) if d["dyn"] else np.full(T, K)
+        examined = composite_cuda.composite_dense_work(*args)
+        # rows 0-9 of the slots composited (and the counts), the output
+        # and n_contrib written
+        nbytes = (T * 4 * d["dyn"] + int(cnt.sum()) * 10 * 4
+                  + T * 8 * P * 4 + T * P * 4)
+        b, by = bound(examined * 30.0, nbytes)
+        name = f"composite_{kind}_fwd"
+        rows.append(dict(
+            name=name, route="cuda",
+            source="gs_icp_slam_torch/csrc/composite_dense.cu",
+            replaces=f"gs_icp_slam_tpu/ops/composite_pallas.py:{line_fwd}",
+            launches=launches_d[name], max_abs_err=err_f,
+            ms=time_ms(lambda: composite_cuda.composite_dense_fwd(*args)),
+            plain_ms=time_ms(lambda: composite_cuda.composite_dense_fwd_plain(
+                *args), reps=2, warmup=1),
+            bound_ms=b, bound_by=by, library_ms=None, tiles=T, K=K,
+            pairs_examined=examined))
+        bargs = (c, d["attrs"], out, nc, d["g"], d["ntx"], DENSE_TILE)
+        walked, blended = composite_cuda.composite_dense_bwd_work(*bargs)
+        cells = int(torch.minimum(nc.amax(1), torch.as_tensor(
+            cnt, device=nc.device)).sum())
+        # rows 0-9 of the walked slots; t_final, n_contrib and g rows 0-4
+        # read; the whole (T, 16, K) gradient written
+        nbytes = cells * 10 * 4 + T * P * 4 * 7 + T * 16 * K * 4
+        b, by = bound(walked * 12.0 + blended * 45.0, nbytes)
+        name = f"composite_{kind}_bwd"
+        g1 = composite_cuda.composite_dense_bwd(*bargs)
+        g0 = composite_cuda.composite_dense_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        scale = g0[:, :10].abs().amax((0, 2)).clamp(min=1e-30)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="gs_icp_slam_torch/csrc/composite_dense.cu",
+            replaces=f"gs_icp_slam_tpu/ops/composite_pallas.py:{line_bwd}",
+            launches=launches_d[name],
+            max_abs_err=float((g1 - g0).abs().max()),
+            row_err_vs_row_max=((g1[:, :10] - g0[:, :10]).abs().amax((0, 2))
+                                / scale).tolist(),
+            ms=time_ms(lambda: composite_cuda.composite_dense_bwd(*bargs)),
+            plain_ms=time_ms(lambda: composite_cuda.composite_dense_bwd_plain(
+                *bargs), reps=2, warmup=1),
+            bound_ms=b, bound_by=by, library_ms=None, tiles=T, K=K,
+            pairs_walked=walked, pairs_blended=blended, cells_walked=cells))
+    return rows
+
+
+def run_path_c(seq, cfg, FusedEngine, RecordedDraws, cuda_build, problems):
+    """FusedEngine.run on bench.py's scenario with the JAX run's draws,
+    held against REF_C; then one refine call.  Counts the host syncs of
+    every fused step (torch.cuda sync debug mode: each blocking copy or
+    stream synchronization inside the step)."""
+    import numpy as np
+    import torch
+
+    cuda_build.reset_launch_counts()
+    draws = RecordedDraws(DRAWS_C + REFINE_DRAWS_C)
+    eng = FusedEngine(seq, cfg, device="cuda", draws=draws)
+    step = eng.fused.step
+    syncs, sites = [], {}
+
+    def counted_step(*a):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = step(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        hits = [w for w in caught if "synchroniz" in str(w.message)]
+        syncs.append(len(hits))
+        for w in hits:  # the Python line that made each sync
+            site = f"{w.filename.split('gs_icp_slam_torch/')[-1]}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+        return out
+
+    eng.fused = eng.fused._replace(step=counted_step)
+    t0 = time.perf_counter()
+    res = eng.run(eval_render=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+    st = eng.state
+    psnr_mean = float(res.psnr)
+    print(json.dumps({
+        "path": "C", "entry": "FusedEngine.run", "frames": FRAMES,
+        "width": WIDTH, "height": HEIGHT,
+        "mapping_iters_per_frame": cfg.engine.mapping_iters_per_frame,
+        "opt_steps": st.train_iter, "fps": res.fps,
+        "wall_s_with_render": wall, "ate_m": res.ate_rmse,
+        "num_gaussians": res.num_gaussians, "kf_total": res.kf_total,
+        "kf_count": res.kf_stored, "psnr_mean": psnr_mean,
+        "psnr_min": float(res.per_frame_psnr.min()),
+        "vis_cap_dropped": res.vis_cap_dropped,
+        "tile_cap_dropped": res.tile_cap_dropped, "launches": launches,
+        "host_syncs_per_frame": float(np.mean(syncs)),
+        "host_syncs_by_frame": syncs, "host_sync_sites": dict(sorted(
+            sites.items(), key=lambda kv: -kv[1])),
+        "draws_used": draws.used}),
+        flush=True)
+    for k in ("nn1", "knn", "composite_fwd", "composite_bwd"):
+        if launches[k] <= 0:
+            problems.append(f"path C: kernel {k} was not launched")
+    if launches["composite_bwd"] != st.train_iter:
+        problems.append(f"path C: composite_bwd launched "
+                        f"{launches['composite_bwd']} times for "
+                        f"{st.train_iter} opt steps")
+    if not np.isfinite(res.poses).all():
+        problems.append("path C: non-finite poses")
+    if not abs(res.ate_rmse - REF_C["ate_m"]) <= TOL_ATE_M:
+        problems.append(f"path C: ATE {res.ate_rmse} vs reference "
+                        f"{REF_C['ate_m']}")
+    for key, got in (("num_gaussians", res.num_gaussians),
+                     ("kf_total", res.kf_total), ("kf_count", res.kf_stored)):
+        if got != REF_C[key]:
+            problems.append(f"path C: {key} {got} vs reference {REF_C[key]}")
+    if not abs(psnr_mean - REF_C["psnr_mean"]) <= TOL_PSNR_DB:
+        problems.append(f"path C: PSNR {psnr_mean} vs reference "
+                        f"{REF_C['psnr_mean']}")
+    for key, got in (("vis_cap_dropped", res.vis_cap_dropped),
+                     ("tile_cap_dropped", res.tile_cap_dropped)):
+        if got > REF_C[key]:
+            problems.append(f"path C: {key} {got} above the reference's "
+                            f"{REF_C[key]}")
+    if draws.used != len(DRAWS_C):
+        problems.append(f"path C: {draws.used} draws taken, the JAX run "
+                        f"took {len(DRAWS_C)}")
+
+    # one refine call: 64 mapping iterations, each one K1-bwd launch
+    cuda_build.reset_launch_counts()
+    n_bucket, _ = eng._pick_buckets(st.gmap.n)
+    eng.state = eng.fused.refine(st, n_bucket)
+    torch.cuda.synchronize()
+    n_bwd = cuda_build.KERNELS["composite_bwd"].launches
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in (*eng.state.gmap[:6], *eng.state.adam.m.values(),
+                           *eng.state.adam.v.values()))
+    print(json.dumps({"path": "C", "entry": "FusedStep.refine",
+                      "composite_bwd_launches": n_bwd,
+                      "params_finite": finite,
+                      "train_iter": eng.state.train_iter}), flush=True)
+    if n_bwd != 64 or not finite:
+        problems.append(f"refine: composite_bwd launched {n_bwd} times "
+                        f"(expected 64), parameters finite: {finite}")
+    return eng, res, launches, syncs
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -116,7 +427,8 @@ def main() -> None:
         from gs_icp_slam_torch.models import map_params
         from gs_icp_slam_torch.ops import composite_cuda, nn_cuda
         from gs_icp_slam_torch.ops.rasterize import bin_splats
-        from gs_icp_slam_torch.slam import SLAMEngine
+        from gs_icp_slam_torch.slam import (FusedEngine, RecordedDraws,
+                                            SLAMEngine)
     except ImportError as e:
         fail(f"the gs_icp_slam_torch package is not beside this script: {e}")
 
@@ -194,10 +506,57 @@ def main() -> None:
 
     _, res_a, launches_a = run_path("A", cfg_a, REF_A,
                                     ("nn1", "knn", "composite_fwd"))
-    eng, res, launches = run_path("B", cfg_b, REF_B, list(cuda_build.KERNELS))
+    eng, res, launches = run_path("B", cfg_b, REF_B,
+                                  ("nn1", "knn", "composite_fwd",
+                                   "composite_bwd"))
     if launches["composite_bwd"] != eng.train_iter:
         problems.append(f"composite_bwd launched {launches['composite_bwd']} "
                         f"times for {eng.train_iter} opt steps")
+    launches_b = launches
+
+    # ---- path C: FusedEngine.run, bench.py's scenario ------------------
+    cfg_c = cfg_b.replace(engine=dataclasses.replace(cfg_b.engine,
+                                                     fps_cap=None))
+    eng_c, res_c, launches_c, syncs = run_path_c(
+        seq, cfg_c, FusedEngine, RecordedDraws, cuda_build, problems)
+
+    # ---- path D: the dense compositors' entry points ------------------
+    dense = {}
+    cuda_build.reset_launch_counts()
+    for key, (T_, ntx_, K_, dyn) in DENSE_GEOMETRIES.items():
+        counts_np, attrs_np = dense_inputs(T_, ntx_, DENSE_TILE, K_,
+                                           seed=len(dense) + 1)
+        counts_t = torch.as_tensor(counts_np, device="cuda")
+        attrs_t = torch.as_tensor(attrs_np, device="cuda")
+        g_t = torch.randn((T_, 8, DENSE_TILE ** 2), generator=torch.Generator(
+            ).manual_seed(3)).to("cuda")
+        g_t[:, 5:] = 0.0
+        a_leaf = attrs_t.clone().requires_grad_(True)
+        if dyn:
+            out_t = composite_cuda.make_composite_dyn(
+                T_, ntx_, DENSE_TILE, K_)(counts_t, a_leaf)
+        else:
+            out_t = composite_cuda.make_composite(T_, ntx_, DENSE_TILE,
+                                                  K_)(a_leaf)
+        (out_t * g_t).sum().backward()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out_t).all() and torch.isfinite(a_leaf.grad)
+                .all()):
+            problems.append(f"path D {key}: non-finite output or gradient")
+        dense[key] = dict(T=T_, ntx=ntx_, K=K_, dyn=dyn, counts=counts_t,
+                          attrs=attrs_t, g=g_t, attrs_np=attrs_np,
+                          counts_np=counts_np, out=out_t.detach(),
+                          grad=a_leaf.grad)
+    launches_d = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+    print(json.dumps({"path": "D", "entry": "make_composite, "
+                      "make_composite_dyn", "geometries": {
+                          k: dict(tiles=v["T"], ntx=v["ntx"], tile=DENSE_TILE,
+                                  K=v["K"], counts=v["dyn"])
+                          for k, v in dense.items()},
+                      "launches": launches_d}), flush=True)
+    for k in DENSE_KERNELS:
+        if launches_d[k] <= 0:
+            problems.append(f"path D: kernel {k} was not launched")
 
     # ---- 3. kernels against their plain versions ------------------------
     dev = torch.device("cuda")
@@ -225,7 +584,8 @@ def main() -> None:
     kernels.append(dict(
         name="nn1", route="cuda", source="gs_icp_slam_torch/csrc/nn1.cu",
         replaces="gs_icp_slam_tpu/ops/nn_pallas.py:32",
-        launches=launches["nn1"], launches_path_a=launches_a["nn1"],
+        launches=launches_c["nn1"], launches_path_a=launches_a["nn1"],
+        launches_path_b=launches_b["nn1"],
         max_abs_err=err,
         ms=time_ms(lambda: nn_cuda.nn_search_pre(q, rT, bias)),
         plain_ms=time_ms(lambda: nn_cuda.nn1_plain(q, rT, bias), reps=3,
@@ -274,7 +634,8 @@ def main() -> None:
     kernels.append(dict(
         name="knn", route="cuda", source="gs_icp_slam_torch/csrc/knn.cu",
         replaces="gs_icp_slam_tpu/ops/nn_pallas.py:113",
-        launches=launches["knn"], launches_path_a=launches_a["knn"],
+        launches=launches_c["knn"], launches_path_a=launches_a["knn"],
+        launches_path_b=launches_b["knn"],
         **knn[20], queries=R, k=20,
         k4={kk: v for kk, v in knn[4].items()}))
 
@@ -316,8 +677,9 @@ def main() -> None:
         name="composite_fwd", route="cuda",
         source="gs_icp_slam_torch/csrc/composite_fwd.cu",
         replaces="gs_icp_slam_tpu/ops/composite_pallas.py:485",
-        launches=launches["composite_fwd"],
-        launches_path_a=launches_a["composite_fwd"], max_abs_err=err,
+        launches=launches_c["composite_fwd"],
+        launches_path_a=launches_a["composite_fwd"],
+        launches_path_b=launches_b["composite_fwd"], max_abs_err=err,
         ms=time_ms(lambda: composite_cuda.composite_fwd(*cargs)),
         plain_ms=time_ms(lambda: composite_cuda.composite_fwd_plain(*cargs),
                          reps=2, warmup=1),
@@ -370,8 +732,9 @@ def main() -> None:
         name="composite_bwd", route="cuda",
         source="gs_icp_slam_torch/csrc/composite_bwd.cu",
         replaces="gs_icp_slam_tpu/ops/composite_pallas.py:547",
-        launches=launches["composite_bwd"],
+        launches=launches_c["composite_bwd"],
         launches_path_a=launches_a["composite_bwd"],
+        launches_path_b=launches_b["composite_bwd"],
         max_abs_err=float((d1 - d0).abs().max()),
         row_err_vs_row_max=row_err,
         ms=time_ms(lambda: composite_cuda.composite_bwd(*bargs)),
@@ -380,6 +743,9 @@ def main() -> None:
         bound_ms=b, bound_by=by, library_ms=None, pairs_walked=walked,
         pairs_blended=blended, cells_walked=cells,
         max_n_contrib=int(nc_b.max())))
+
+    kernels += dense_kernel_phases(dense, launches_d, composite_cuda,
+                                   problems)
 
     if problems:
         for p in problems:

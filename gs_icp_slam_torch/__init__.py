@@ -8,17 +8,22 @@ by hand for Hopper (sources in `csrc/`, built on first use by
 `cuda_build.py`).  Each kernel wrapper keeps a plain PyTorch version of
 the same function, which it runs only for tensors on the CPU.
 
-Ported so far: the staged `SLAMEngine` — G-ICP tracking, keyframe
-insertion with covariance sharing, target export, mapping iterations
-(differentiable rendering, the SSIM/L1/depth loss, masked Adam, pruning)
-and evaluation renders.
+Ported so far: `FusedEngine`, the engine of bench.py's path (the fused
+per-frame step with grid k-NN source covariances, capacity buckets, the
+reservoir keyframe store and `refine`), and the staged `SLAMEngine` —
+G-ICP tracking, keyframe insertion with covariance sharing, target
+export, mapping iterations (differentiable rendering, the SSIM/L1/depth
+loss, masked Adam, pruning) and evaluation renders; and every Pallas
+kernel of the JAX package, the dense compositors `make_composite` /
+`make_composite_dyn` included.
 
 Layout:
   utils/     quaternion / SE(3) / camera / SH / point-cloud math, losses
   ops/       kNN, 3x3 eigh, covariances, G-ICP, projection, rasterizer,
              and the kernel wrappers (nn_cuda, composite_cuda)
   models/    the fixed-capacity Gaussian map and masked Adam
-  slam/      the staged engine and the mapping step (fused.py)
+  slam/      the fused step and engine (fused.py, state.py), the staged
+             engine
   datasets/  the procedural synthetic RGB-D sequence
   eval/      ATE
 """

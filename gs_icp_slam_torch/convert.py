@@ -3,8 +3,8 @@
 The port never imports JAX: a caller turns the JAX objects into numpy
 (`np.asarray` of each field, `dataclasses.asdict` of a config) and these
 functions build the port's counterparts, so both packages can be fed the
-same map, target and configuration.  Like every entry point, the tensors
-land on the GPU unless the caller asks for the CPU.
+same map, target, engine state and configuration.  Like every entry
+point, the tensors land on the GPU unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -68,3 +68,39 @@ def config_from_dict(d: dict) -> SLAMConfig:
         kf=KeyframeConfig(**d["kf"]), engine=EngineConfig(**d["engine"]),
         render=RenderConfig(**{**d["render"],
                                "bg_color": tuple(d["render"]["bg_color"])}))
+
+
+def _fields(x) -> dict:
+    return x if isinstance(x, dict) else x._asdict()
+
+
+def state_from_numpy(s, device="cuda"):
+    """The fused engine's SLAMState from the JAX package's SLAMState as
+    numpy (`jax.device_get(state)`: a NamedTuple, or a dict keyed by its
+    field names, with gmap, adam and target nested the same way).  The
+    JAX state's PRNG key is not carried over: the port's step takes its
+    draws from the draw source its engine is given."""
+    from .slam.state import SLAMState
+
+    d = _fields(s)
+    adam = _fields(d["adam"])
+    dev = resolve_device(device)
+    i64 = torch.int64
+    return SLAMState(
+        gmap=map_from_numpy(_fields(d["gmap"]), dev),
+        adam=adam_from_numpy({"m": dict(adam["m"]), "v": dict(adam["v"]),
+                              "step": adam["step"]}, dev),
+        target=target_from_numpy(_fields(d["target"]), dev),
+        poses=_t(d["poses"], dev, torch.float32),
+        kf_w2c=_t(d["kf_w2c"], dev, torch.float32),
+        kf_rgb=_t(d["kf_rgb"], dev, torch.uint8),
+        kf_depth=_t(d["kf_depth"], dev, torch.float32),
+        frame_idx=int(np.asarray(d["frame_idx"])),
+        kf_count=int(np.asarray(d["kf_count"])),
+        kf_total=int(np.asarray(d["kf_total"])),
+        new_kf=int(np.asarray(d["new_kf"])),
+        from_last_kf=int(np.asarray(d["from_last_kf"])),
+        train_iter=int(np.asarray(d["train_iter"])),
+        last_ratio=float(np.asarray(d["last_ratio"])),
+        stat_vis_dropped=_t(d["stat_vis_dropped"], dev, i64),
+        stat_pair_dropped=_t(d["stat_pair_dropped"], dev, i64))

@@ -39,22 +39,16 @@
 // the place of the Pallas kernel's (16, T*K) cell grid and the cell_idx
 // gather.  Global atomics make the low bits vary from run to run.  Built
 // without fused multiply-add, like the forward, so that the recomputed
-// power and alpha round as they did there and every gate decision repeats.
+// power and alpha round as they did there and every gate decision repeats;
+// the per-pair arithmetic is shared with K1-fwd and K4
+// (composite_common.cuh).
 #include "common.cuh"
+#include "composite_common.cuh"
 
 namespace {
 
 constexpr int kBatch = 256;
-constexpr int kTerms = 10;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using gs::kTerms;
 
 __global__ void __launch_bounds__(1024)
 composite_bwd_kernel(const int* __restrict__ counts,
@@ -79,14 +73,14 @@ composite_bwd_kernel(const int* __restrict__ counts,
   const size_t base = static_cast<size_t>(t) * 8 * P + pid;
 
   const int nc = pixel ? n_contrib[static_cast<size_t>(t) * P + pid] : 0;
-  float tr = 1.f, g_r = 0.f, g_g = 0.f, g_b = 0.f, g_d = 0.f, gtf_tf = 0.f;
+  gs::BwdPixel p{1.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (pixel) {
-    tr = out[base + 4 * P];
-    g_r = g[base];
-    g_g = g[base + 1 * P];
-    g_b = g[base + 2 * P];
-    g_d = g[base + 3 * P];
-    gtf_tf = g[base + 4 * P] * tr;
+    p.tr = out[base + 4 * P];
+    p.g_r = g[base];
+    p.g_g = g[base + 1 * P];
+    p.g_b = g[base + 2 * P];
+    p.g_d = g[base + 3 * P];
+    p.gtf_tf = g[base + 4 * P] * p.tr;
   }
   if (pid == 0) s_walk = 0;
   __syncthreads();
@@ -94,7 +88,6 @@ composite_bwd_kernel(const int* __restrict__ counts,
   __syncthreads();
   const int walk = min(s_walk, counts[t]);
 
-  float S = 0.f;
   for (int b0 = ((walk - 1) / kBatch) * kBatch; walk > 0 && b0 >= 0;
        b0 -= kBatch) {
     const int n = min(kBatch, walk - b0);
@@ -113,44 +106,11 @@ composite_bwd_kernel(const int* __restrict__ counts,
 #pragma unroll
       for (int c = 0; c < kTerms; ++c) v[c] = 0.f;
       bool blended = false;
-      if (b0 + j < nc) {
-        const float dx = px - s_attr[0][j];
-        const float dy = py - s_attr[1][j];
-        const float ca = s_attr[2][j], cb = s_attr[3][j], cc = s_attr[4][j];
-        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-        if (power <= 0.f) {
-          const float gexp = expf(power);
-          const float araw = s_attr[8][j] * gexp;
-          if (araw >= kAlphaMin) {
-            blended = true;
-            const float alpha = fminf(araw, kAlphaMax);
-            const float o = 1.f - alpha;
-            const float t_before = tr / o;
-            const float dldw = g_r * s_attr[5][j] + g_g * s_attr[6][j] +
-                               g_b * s_attr[7][j] + g_d * s_attr[9][j];
-            const float w = alpha * t_before;
-            const float dalpha = t_before * dldw - (S + gtf_tf) / o;
-            v[5] = w * g_r;
-            v[6] = w * g_g;
-            v[7] = w * g_b;
-            v[9] = w * g_d;
-            if (araw < kAlphaMax) {
-              const float dpow = dalpha * araw;
-              v[0] = dpow * (ca * dx + cb * dy);
-              v[1] = dpow * (cc * dy + cb * dx);
-              v[2] = dpow * (-0.5f * dx * dx);
-              v[3] = dpow * (-dx * dy);
-              v[4] = dpow * (-0.5f * dy * dy);
-              v[8] = dalpha * gexp;
-            }
-            S = S + w * dldw;
-            tr = t_before;
-          }
-        }
-      }
+      if (b0 + j < nc)
+        blended = gs::bwd_pair(p, px, py, gs::splat_at(s_attr, j), v);
       if (__any_sync(0xffffffffu, blended)) {
 #pragma unroll
-        for (int c = 0; c < kTerms; ++c) v[c] = warp_sum(v[c]);
+        for (int c = 0; c < kTerms; ++c) v[c] = gs::warp_sum(v[c]);
         if (lane == 0) {
 #pragma unroll
           for (int c = 0; c < kTerms; ++c) atomicAdd(&s_grad[c][j], v[c]);

@@ -33,15 +33,14 @@
 // to back and stops at the done rule; the block leaves as soon as no
 // thread is left (__syncthreads_count), the per-tile early exit of the
 // Pallas kernel.  Built without fused multiply-add so that the plain
-// PyTorch version rounds the same way.
+// PyTorch version rounds the same way; the per-pair arithmetic is shared
+// with K1-bwd and K4 (composite_common.cuh).
 #include "common.cuh"
+#include "composite_common.cuh"
 
 namespace {
 
 constexpr int kBatch = 256;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
 
 __global__ void __launch_bounds__(1024)
 composite_fwd_kernel(const int* __restrict__ counts,
@@ -59,12 +58,10 @@ composite_fwd_kernel(const int* __restrict__ counts,
   const int count = counts[t];
   const int start = starts[t];
 
-  float tr = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, cd = 0.f;
-  int last = 0;
-  bool done = false;
+  gs::FwdPixel p;
   for (int b0 = 0; b0 < count; b0 += kBatch) {
     // also the barrier that keeps the previous batch until all have read it
-    if (__syncthreads_count(!done) == 0) break;
+    if (__syncthreads_count(!p.done) == 0) break;
     const int n = min(kBatch, count - b0);
     for (int j = pid; j < n; j += blockDim.x) {
       const int s = pair_slot[start + b0 + j];
@@ -72,41 +69,22 @@ composite_fwd_kernel(const int* __restrict__ counts,
       for (int c = 0; c < 10; ++c) s_attr[c][j] = attr[c * Vp + s];
     }
     __syncthreads();
-    if (done) continue;
+    if (p.done) continue;
     for (int j = 0; j < n; ++j) {
-      const float dx = px - s_attr[0][j];
-      const float dy = py - s_attr[1][j];
-      const float power = -0.5f * (s_attr[2][j] * dx * dx +
-                                   s_attr[4][j] * dy * dy) -
-                          s_attr[3][j] * dx * dy;
-      if (!(power <= 0.f)) continue;
-      const float araw = s_attr[8][j] * expf(power);
-      if (!(araw >= kAlphaMin)) continue;
-      const float alpha = fminf(araw, kAlphaMax);
-      const float t_next = tr * (1.f - alpha);
-      if (t_next < kTEps) {
-        done = true;
-        break;
-      }
-      const float w = alpha * tr;
-      cr = cr + w * s_attr[5][j];
-      cg = cg + w * s_attr[6][j];
-      cb = cb + w * s_attr[7][j];
-      cd = cd + w * s_attr[9][j];
-      tr = t_next;
-      last = b0 + j + 1;
+      gs::fwd_blend(p, px, py, gs::splat_at(s_attr, j), b0 + j);
+      if (p.done) break;
     }
   }
   float* o = out + static_cast<size_t>(t) * 8 * P + pid;
-  o[0 * P] = cr;
-  o[1 * P] = cg;
-  o[2 * P] = cb;
-  o[3 * P] = cd;
-  o[4 * P] = tr;
+  o[0 * P] = p.cr;
+  o[1 * P] = p.cg;
+  o[2 * P] = p.cb;
+  o[3 * P] = p.cd;
+  o[4 * P] = p.tr;
   o[5 * P] = 0.f;
   o[6 * P] = 0.f;
   o[7 * P] = 0.f;
-  n_contrib[static_cast<size_t>(t) * P + pid] = last;
+  n_contrib[static_cast<size_t>(t) * P + pid] = p.last;
 }
 
 }  // namespace

@@ -1,5 +1,7 @@
 """Per-tile alpha compositor: kernels K1-fwd and K1-bwd (counterpart of
-gs_icp_slam_tpu/ops/composite_pallas.py `make_composite_win` and its VJP).
+gs_icp_slam_tpu/ops/composite_pallas.py `make_composite_win` and its VJP),
+and K4a/K4b, the same function on a dense (T, 16, K) block per tile
+(`make_composite`, `make_composite_dyn`).
 
 Each wrapper launches its csrc/ kernel for CUDA tensors and runs the plain
 PyTorch version beside it for CPU tensors.  Both directions follow the
@@ -13,7 +15,12 @@ walks each pixel's run in reverse from there.
 `composite` is the differentiable entry point: a torch.autograd.Function
 whose forward is K1-fwd and whose backward is K1-bwd, giving the gradient
 of the (10, V+1) compacted attribute table from the gradient of output
-rows 0-2 (rgb), 3 (depth) and 4 (final transmittance).
+rows 0-2 (rgb), 3 (depth) and 4 (final transmittance).  `make_composite`
+and `make_composite_dyn` build the K4a/K4b entry points the same way.
+
+The plain versions share one rank-at-a-time loop over a run layout: the
+splats of each tile's run gathered rank-major, (10, T, kmax), with an
+in-run mask.  K1 gathers it through pair_slot; K4 reads its dense block.
 """
 from __future__ import annotations
 
@@ -34,25 +41,61 @@ COMPOSITE_BWD = CudaKernel("composite_bwd", "composite_bwd.cu",
                            "composite_bwd_launch",
                            [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                             _P])
+# K4a (dense) and K4b (dense with per-tile counts): one source, four entry
+# points, each with its own launch count
+COMPOSITE_DENSE_FWD = CudaKernel("composite_dense_fwd", "composite_dense.cu",
+                                 "composite_dense_fwd_launch",
+                                 [_P, _I, _I, _I, _I, _P, _P, _P])
+COMPOSITE_DENSE_BWD = CudaKernel("composite_dense_bwd", "composite_dense.cu",
+                                 "composite_dense_bwd_launch",
+                                 [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P])
+COMPOSITE_DYN_FWD = CudaKernel("composite_dyn_fwd", "composite_dense.cu",
+                               "composite_dyn_fwd_launch",
+                               [_P, _P, _I, _I, _I, _I, _P, _P, _P])
+COMPOSITE_DYN_BWD = CudaKernel("composite_dyn_bwd", "composite_dense.cu",
+                               "composite_dyn_bwd_launch",
+                               [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P])
+
+
+def _pixels(T, ntx, tile, dev, dtype):
+    """Pixel coordinates (T, P) of every tile, row-major tiles."""
+    P = tile * tile
+    pid = torch.arange(P, device=dev)
+    tid = torch.arange(T, device=dev)
+    px = (((tid % ntx) * tile)[:, None] + (pid % tile)[None]).to(dtype)
+    py = (((tid // ntx) * tile)[:, None] + (pid // tile)[None]).to(dtype)
+    return px, py
 
 
 def _runs(counts, starts, pair_slot, attr, ntx, tile):
-    """Pixel coordinates (T, P) and each tile's run gathered rank-major:
-    (10, T, K) attributes, the (T, K) in-run mask and attr columns."""
+    """K1's run layout: pixel coordinates (T, P), the (T, kmax) in-run
+    mask, the attr columns of each run and its (10, T, kmax) attributes."""
     T = counts.shape[0]
-    P = tile * tile
     dev = attr.device
     kmax = int(counts.max()) if T else 0
-    pid = torch.arange(P, device=dev)
-    tid = torch.arange(T, device=dev)
-    px = (((tid % ntx) * tile)[:, None] + (pid % tile)[None]).to(attr.dtype)
-    py = (((tid // ntx) * tile)[:, None] + (pid // tile)[None]).to(attr.dtype)
+    px, py = _pixels(T, ntx, tile, dev, attr.dtype)
     rank = torch.arange(kmax, device=dev)
     in_run = rank[None] < counts[:, None].long()                     # (T, K)
     rows = torch.clamp(starts[:, None].long() + rank[None],
                        max=max(pair_slot.shape[0] - 1, 0))
     cols = torch.where(in_run, pair_slot[rows].long(), 0)
-    return px, py, kmax, in_run, cols, attr[:10][:, cols]
+    return px, py, in_run, cols, attr[:10][:, cols]
+
+
+def _dense_runs(counts, attrs, ntx, tile):
+    """K4's run layout: slot k of tile t is its run rank k; with counts,
+    tile t's run is its first counts[t] slots (clamped to [0, K])."""
+    T, _, K = attrs.shape
+    dev = attrs.device
+    px, py = _pixels(T, ntx, tile, dev, attrs.dtype)
+    if counts is None:
+        kmax = K
+        in_run = torch.ones((T, K), dtype=torch.bool, device=dev)
+    else:
+        c = torch.clamp(counts.long(), 0, K)
+        kmax = int(c.max()) if T else 0
+        in_run = torch.arange(kmax, device=dev)[None] < c[:, None]
+    return px, py, in_run, attrs[:, :10, :kmax].permute(1, 0, 2)
 
 
 def _geometry(aj, px, py):
@@ -68,21 +111,19 @@ def _geometry(aj, px, py):
     return dx, dy, power, gexp, araw, gate
 
 
-def _composite_loop(counts, starts, pair_slot, attr, ntx, tile):
-    """The forward kernel's front-to-back loop, one splat rank at a time
-    over (T, P) pixel vectors, in the kernel's operation order.  Returns
-    the (T, 8, P) output, n_contrib (T, P) int32 and the number of (pixel,
-    splat) pairs examined: for each pixel, the splats of its run up to and
-    including the one that stops it."""
-    T = counts.shape[0]
-    P = tile * tile
-    dev = attr.device
-    f = dict(dtype=attr.dtype, device=dev)
+def _composite_loop(px, py, in_run, a):
+    """The forward kernels' front-to-back loop over a run layout, one
+    splat rank at a time over (T, P) pixel vectors, in the kernels'
+    operation order.  Returns the (T, 8, P) output, n_contrib (T, P) int32
+    and the number of (pixel, splat) pairs examined: for each pixel, the
+    splats of its run up to and including the one that stops it."""
+    T, P = px.shape
+    kmax = a.shape[2]
+    dev = a.device
+    f = dict(dtype=a.dtype, device=dev)
     out = torch.zeros((T, 8, P), **f)
     n_contrib = torch.zeros((T, P), dtype=torch.int32, device=dev)
     examined = torch.zeros((), dtype=torch.int64, device=dev)
-    px, py, kmax, in_run, _, a = _runs(counts, starts, pair_slot, attr, ntx,
-                                       tile)
     tr = torch.ones((T, P), **f)
     acc = torch.zeros((4, T, P), **f)
     done = torch.zeros((T, P), dtype=torch.bool, device=dev)
@@ -111,7 +152,8 @@ def composite_fwd_plain(counts: torch.Tensor, starts: torch.Tensor,
                         pair_slot: torch.Tensor, attr: torch.Tensor,
                         ntx: int, tile: int):
     """Plain PyTorch K1-fwd: the same function as the kernel."""
-    return _composite_loop(counts, starts, pair_slot, attr, ntx, tile)[:2]
+    px, py, in_run, _, a = _runs(counts, starts, pair_slot, attr, ntx, tile)
+    return _composite_loop(px, py, in_run, a)[:2]
 
 
 def composite_work(counts: torch.Tensor, starts: torch.Tensor,
@@ -119,7 +161,8 @@ def composite_work(counts: torch.Tensor, starts: torch.Tensor,
                    tile: int) -> int:
     """(pixel, splat) pairs the forward must examine on these inputs: the
     data-dependent work count behind K1-fwd's bound."""
-    return int(_composite_loop(counts, starts, pair_slot, attr, ntx, tile)[2])
+    px, py, in_run, _, a = _runs(counts, starts, pair_slot, attr, ntx, tile)
+    return int(_composite_loop(px, py, in_run, a)[2])
 
 
 def _check_inputs(counts, starts, pair_slot, attr, tile):
@@ -162,36 +205,32 @@ def composite_fwd(counts: torch.Tensor, starts: torch.Tensor,
     return out, n_contrib
 
 
-def _composite_bwd_loop(counts, starts, pair_slot, attr, out, n_contrib, g,
-                        ntx, tile):
-    """The backward kernel's reverse walk, one splat rank at a time over
-    (T, P) pixel vectors, in the kernel's operation order.  Each pixel
-    walks ranks below its n_contrib, recovering the transmittance before
-    each blended splat by division (T_before = T_after / (1 - alpha)) and
-    carrying S, the sum of w * dL/dw over the later blended splats:
+def _composite_bwd_loop(px, py, in_run, a, out, n_contrib, g):
+    """The backward kernels' reverse walk over a run layout, one splat rank
+    at a time over (T, P) pixel vectors, in the kernels' operation order.
+    Each pixel walks ranks below its n_contrib, recovering the
+    transmittance before each blended splat by division (T_before =
+    T_after / (1 - alpha)) and carrying S, the sum of w * dL/dw over the
+    later blended splats:
 
         dL/dw     = g_rgb . rgb + g_depth * depth
         dL/dalpha = T_before * dL/dw - (S + g_tf * t_final) / (1 - alpha)
 
-    zero where alpha was clamped at ALPHA_MAX.  Per-(tile, rank) sums over
-    the pixels go to the splat's column with index_add_.  Returns the
-    (R, Vp) gradient of attr (rows >= 10 zero), the number of (pixel,
-    splat) pairs walked and of those that blended."""
-    T = counts.shape[0]
-    P = tile * tile
-    dev = attr.device
-    d_attr = torch.zeros_like(attr)
-    px, py, kmax, in_run, cols, a = _runs(counts, starts, pair_slot, attr,
-                                          ntx, tile)
+    zero where alpha was clamped at ALPHA_MAX.  Returns the per-(tile,
+    rank) sums over the pixels, (10, T, kmax) (zero outside the runs), the
+    number of (pixel, splat) pairs walked and of those that blended."""
+    T, P = px.shape
+    kmax = a.shape[2]
+    dev = a.device
     walked = torch.zeros((), dtype=torch.int64, device=dev)
     blended = torch.zeros((), dtype=torch.int64, device=dev)
+    cell = torch.zeros((10, T, kmax), dtype=a.dtype, device=dev)
     if kmax == 0:
-        return d_attr, walked, blended
+        return cell, walked, blended
     g_r, g_g, g_b, g_d, g_tf = (g[:, c] for c in range(5))
     tr = out[:, 4].clone()
     gtf_tf = g_tf * out[:, 4]
-    S = torch.zeros((T, P), dtype=attr.dtype, device=dev)
-    cell = torch.zeros((10, T, kmax), dtype=attr.dtype, device=dev)
+    S = torch.zeros((T, P), dtype=a.dtype, device=dev)
     for j in range(kmax - 1, -1, -1):
         aj = a[:, :, j:j + 1]
         act = n_contrib > j
@@ -217,7 +256,18 @@ def _composite_bwd_loop(counts, starts, pair_slot, attr, out, n_contrib, g,
             cell[c, :, j] = torch.where(keep, v, 0.0).sum(1)
         S = torch.where(gate, S + w * dldw, S)
         tr = torch.where(gate, t_before, tr)
-    cell = torch.where(in_run[None], cell, 0.0)
+    return torch.where(in_run[None], cell, 0.0), walked, blended
+
+
+def _composite_bwd_pairs(counts, starts, pair_slot, attr, out, n_contrib, g,
+                         ntx, tile):
+    """K1-bwd's reverse walk, the per-(tile, rank) sums sent to each
+    splat's column with index_add_: ((R, Vp) gradient, walked, blended)."""
+    px, py, in_run, cols, a = _runs(counts, starts, pair_slot, attr, ntx,
+                                    tile)
+    cell, walked, blended = _composite_bwd_loop(px, py, in_run, a, out,
+                                                n_contrib, g)
+    d_attr = torch.zeros_like(attr)
     d_attr[:10].index_add_(1, cols.reshape(-1), cell.reshape(10, -1))
     return d_attr, walked, blended
 
@@ -225,15 +275,15 @@ def _composite_bwd_loop(counts, starts, pair_slot, attr, out, n_contrib, g,
 def composite_bwd_plain(counts, starts, pair_slot, attr, out, n_contrib, g,
                         ntx: int, tile: int) -> torch.Tensor:
     """Plain PyTorch K1-bwd: the same function as the kernel."""
-    return _composite_bwd_loop(counts, starts, pair_slot, attr, out,
-                               n_contrib, g, ntx, tile)[0]
+    return _composite_bwd_pairs(counts, starts, pair_slot, attr, out,
+                                n_contrib, g, ntx, tile)[0]
 
 
 def composite_bwd_work(counts, starts, pair_slot, attr, out, n_contrib, g,
                        ntx: int, tile: int):
     """(pixel, splat) pairs the backward walks on these inputs, and how
     many of them blended: the data-dependent work behind K1-bwd's bound."""
-    _, walked, blended = _composite_bwd_loop(
+    _, walked, blended = _composite_bwd_pairs(
         counts, starts, pair_slot, attr, out, n_contrib, g, ntx, tile)
     return int(walked), int(blended)
 
@@ -289,3 +339,161 @@ def composite(counts: torch.Tensor, starts: torch.Tensor,
     """composite_fwd's (T, 8, P) output, differentiable with respect to
     attr: the backward is K1-bwd (composite_bwd)."""
     return _Composite.apply(counts, starts, pair_slot, attr, ntx, tile)
+
+
+# ------------------------------------------------------------- K4a / K4b --
+
+def _check_dense(counts, attrs, tile):
+    dev = attrs.device
+    check_tensor("attrs", attrs, torch.float32, (None, 16, None), dev)
+    if counts is not None:
+        check_tensor("counts", counts, torch.int32, (attrs.shape[0],), dev)
+    if not 1 <= tile * tile <= 1024:
+        raise ValueError(f"tile {tile}: tile^2 must be in 1..1024")
+
+
+def composite_dense_fwd_plain(counts, attrs: torch.Tensor, ntx: int,
+                              tile: int):
+    """Plain PyTorch K4a (counts None) / K4b forward: the same function as
+    the kernel.  Returns (out (T, 8, P), n_contrib (T, P) int32)."""
+    return _composite_loop(*_dense_runs(counts, attrs, ntx, tile))[:2]
+
+
+def composite_dense_work(counts, attrs: torch.Tensor, ntx: int,
+                         tile: int) -> int:
+    """(pixel, splat) pairs the K4 forward must examine on these inputs."""
+    return int(_composite_loop(*_dense_runs(counts, attrs, ntx, tile))[2])
+
+
+def _composite_dense_bwd_cells(counts, attrs, out, n_contrib, g, ntx, tile):
+    px, py, in_run, a = _dense_runs(counts, attrs, ntx, tile)
+    cell, walked, blended = _composite_bwd_loop(px, py, in_run, a, out,
+                                                n_contrib, g)
+    d_attrs = torch.zeros_like(attrs)
+    d_attrs[:, :10, :cell.shape[2]] = cell.permute(1, 0, 2)
+    return d_attrs, walked, blended
+
+
+def composite_dense_bwd_plain(counts, attrs, out, n_contrib, g, ntx: int,
+                              tile: int) -> torch.Tensor:
+    """Plain PyTorch K4a (counts None) / K4b backward: the (T, 16, K)
+    gradient of attrs, the same function as the kernel."""
+    return _composite_dense_bwd_cells(counts, attrs, out, n_contrib, g, ntx,
+                                      tile)[0]
+
+
+def composite_dense_bwd_work(counts, attrs, out, n_contrib, g, ntx: int,
+                             tile: int):
+    """(pixel, splat) pairs the K4 backward walks, and how many blended."""
+    _, walked, blended = _composite_dense_bwd_cells(counts, attrs, out,
+                                                    n_contrib, g, ntx, tile)
+    return int(walked), int(blended)
+
+
+def composite_dense_fwd(counts, attrs: torch.Tensor, ntx: int, tile: int):
+    """Composite each tile's dense block of depth-sorted splats: kernel K4a
+    when counts is None (all K slots), K4b when counts (T,) int32 is given
+    (tile t's first counts[t] slots, clamped to [0, K]; the rest are
+    ignored and get zero gradient).
+
+    attrs (T, 16, K) float32, rows as composite_fwd's attr (rows 10-15
+    unused); tiles row-major with ntx per row, tile x tile pixels each.
+    Returns (out (T, 8, tile^2) float32, n_contrib (T, tile^2) int32), as
+    composite_fwd.
+    """
+    _check_dense(counts, attrs, tile)
+    dev = attrs.device
+    if not on_cuda(dev):
+        return composite_dense_fwd_plain(counts, attrs, ntx, tile)
+    T, _, K = attrs.shape
+    P = tile * tile
+    out = torch.empty((T, 8, P), dtype=torch.float32, device=dev)
+    n_contrib = torch.empty((T, P), dtype=torch.int32, device=dev)
+    if counts is None:
+        COMPOSITE_DENSE_FWD(attrs.data_ptr(), T, K, ntx, tile, out.data_ptr(),
+                            n_contrib.data_ptr(), stream_ptr(dev))
+    else:
+        COMPOSITE_DYN_FWD(counts.data_ptr(), attrs.data_ptr(), T, K, ntx,
+                          tile, out.data_ptr(), n_contrib.data_ptr(),
+                          stream_ptr(dev))
+    return out, n_contrib
+
+
+def composite_dense_bwd(counts, attrs: torch.Tensor, out: torch.Tensor,
+                        n_contrib: torch.Tensor, g: torch.Tensor, ntx: int,
+                        tile: int) -> torch.Tensor:
+    """Gradient of attrs (T, 16, K) from g (T, 8, P), the gradient of
+    composite_dense_fwd's out (rows 0-4 read): kernel K4a's backward when
+    counts is None, K4b's otherwise.  Rows 10-15 and slots outside the
+    runs are zero."""
+    _check_dense(counts, attrs, tile)
+    dev = attrs.device
+    T, _, K = attrs.shape
+    P = tile * tile
+    check_tensor("out", out, torch.float32, (T, 8, P), dev)
+    check_tensor("n_contrib", n_contrib, torch.int32, (T, P), dev)
+    check_tensor("g", g, torch.float32, (T, 8, P), dev)
+    if not on_cuda(dev):
+        return composite_dense_bwd_plain(counts, attrs, out, n_contrib, g,
+                                         ntx, tile)
+    d_attrs = torch.empty_like(attrs)
+    if counts is None:
+        COMPOSITE_DENSE_BWD(attrs.data_ptr(), T, K, ntx, tile, out.data_ptr(),
+                            n_contrib.data_ptr(), g.data_ptr(),
+                            d_attrs.data_ptr(), stream_ptr(dev))
+    else:
+        COMPOSITE_DYN_BWD(counts.data_ptr(), attrs.data_ptr(), T, K, ntx,
+                          tile, out.data_ptr(), n_contrib.data_ptr(),
+                          g.data_ptr(), d_attrs.data_ptr(), stream_ptr(dev))
+    return d_attrs
+
+
+class _CompositeDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, counts, attrs, ntx, tile):
+        out, n_contrib = composite_dense_fwd(counts, attrs, ntx, tile)
+        ctx.save_for_backward(attrs, out, n_contrib)
+        ctx.counts = counts
+        ctx.geom = (ntx, tile)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        attrs, out, n_contrib = ctx.saved_tensors
+        d_attrs = composite_dense_bwd(ctx.counts, attrs, out, n_contrib,
+                                      g.contiguous(), *ctx.geom)
+        return None, d_attrs, None, None
+
+
+def _check_geometry(T, ntx, tile_px, K, attrs):
+    if tuple(attrs.shape) != (T, 16, K):
+        raise ValueError(f"attrs: shape {tuple(attrs.shape)}, expected "
+                         f"{(T, 16, K)}")
+    if ntx < 1 or T % ntx:
+        raise ValueError(f"{T} tiles do not fill rows of {ntx}")
+
+
+def make_composite(T: int, ntx: int, tile_px: int, K: int):
+    """The dense tile compositor for a fixed geometry (kernel K4a):
+    f(attrs (T, 16, K)) -> (T, 8, tile_px^2), every tile compositing all K
+    slots; differentiable with respect to attrs (backward: K4a's)."""
+
+    def composite_dense(attrs: torch.Tensor) -> torch.Tensor:
+        _check_geometry(T, ntx, tile_px, K, attrs)
+        return _CompositeDense.apply(None, attrs, ntx, tile_px)
+
+    return composite_dense
+
+
+def make_composite_dyn(T: int, ntx: int, tile_px: int, K: int):
+    """The dense tile compositor with per-tile counts (kernel K4b):
+    f(counts (T,) int32, attrs (T, 16, K)) -> (T, 8, tile_px^2), tile t
+    compositing its first counts[t] slots.  Slots past counts[t] are
+    ignored and get zero gradient; counts are clamped to [0, K]."""
+
+    def composite_dyn(counts: torch.Tensor,
+                      attrs: torch.Tensor) -> torch.Tensor:
+        _check_geometry(T, ntx, tile_px, K, attrs)
+        return _CompositeDense.apply(counts, attrs, ntx, tile_px)
+
+    return composite_dyn

@@ -1,5 +1,8 @@
 from .engine import SLAMEngine, SLAMResult
-from .fused import MappingPrimitives, make_mapping_primitives
+from .fused import (FusedEngine, FusedStep, MappingPrimitives, RecordedDraws,
+                    TorchDraws, make_fused_step, make_mapping_primitives)
+from .state import SLAMState, init_state
 
-__all__ = ["MappingPrimitives", "SLAMEngine", "SLAMResult",
-           "make_mapping_primitives"]
+__all__ = ["FusedEngine", "FusedStep", "MappingPrimitives", "RecordedDraws",
+           "SLAMEngine", "SLAMResult", "SLAMState", "TorchDraws",
+           "init_state", "make_fused_step", "make_mapping_primitives"]

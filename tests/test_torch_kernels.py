@@ -10,7 +10,10 @@ distance as PyTorch does, and keep the lowest-index tie rule); K1-fwd
 atol 1e-5 and n_contrib exact (the same operation order; exp may differ
 by an ulp); K1-bwd each attribute row within 1e-4 of the row's largest
 |gradient| (the same per-pair arithmetic, but the pixel sums are taken
-by warp shuffles and atomics in an order that changes from run to run).
+by warp shuffles and atomics in an order that changes from run to run);
+K4a/K4b forward atol 1e-5 with n_contrib exact, backward each row within
+1e-4 of the row's largest |gradient| (no atomics: the kernel's warp sums
+are added in a fixed order, so two runs give the same bits).
 """
 import numpy as np
 import pytest
@@ -139,6 +142,74 @@ def test_composite_bwd_kernel_matches_plain(dev, case):
     if case == "all_stop_early":  # every pixel stopped before its run ended
         assert (out[:, 4] < 1e-2).all()
         assert (nc < torch.as_tensor(counts, device=dev)[:, None]).all()
+
+
+def _dense_inputs(T, ntx, tile, K, seed=1):
+    """K4 inputs as scripts/tpu_kernel_smoke.py makes them, plus a
+    zero-opacity tile and an empty one."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, K + 1, size=(T,)).astype(np.int32)
+    counts[[0, 1]] = (0, K)
+    a = np.zeros((T, 16, K), np.float32)
+    a[:, 0] = rng.uniform(0, ntx * tile, (T, K))
+    a[:, 1] = rng.uniform(0, (T // ntx) * tile, (T, K))
+    a[:, 2] = 0.05
+    a[:, 4] = 0.05
+    a[:, 5:8] = rng.uniform(0, 1, (T, 3, K))
+    a[:, 8] = rng.uniform(0.1, 0.9, (T, K))
+    a[:, 9] = rng.uniform(0.5, 5.0, (T, K))
+    a[2, 8] = 0.0
+    return counts, a
+
+
+@pytest.mark.parametrize("dyn", [False, True])
+@pytest.mark.parametrize("T,ntx,K", [(48, 8, 128), (12, 4, 256),
+                                     (6, 3, 300)])
+def test_composite_dense_kernels_match_plain(dev, dyn, T, ntx, K):
+    tile = 16
+    counts, a = _dense_inputs(T, ntx, tile, K)
+    c = torch.as_tensor(counts).to(dev) if dyn else None
+    attrs = torch.as_tensor(a).to(dev)
+    out, nc = composite_cuda.composite_dense_fwd(c, attrs, ntx, tile)
+    ref, nc0 = composite_cuda.composite_dense_fwd_plain(c, attrs, ntx, tile)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    assert torch.equal(nc, nc0)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(3))
+    g[:, 5:] = 0.0
+    g = g.to(dev)
+    got = composite_cuda.composite_dense_bwd(c, attrs, out, nc, g, ntx, tile)
+    again = composite_cuda.composite_dense_bwd(c, attrs, out, nc, g, ntx,
+                                               tile)
+    want = composite_cuda.composite_dense_bwd_plain(c, attrs, out, nc, g, ntx,
+                                                    tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # deterministic
+    scale = want.abs().amax((0, 2), keepdim=True).clamp(min=1e-30)
+    assert float(((got - want).abs() / scale).max()) <= 1e-4
+    assert float(want.abs().max()) > 0
+    assert (got[:, 10:] == 0).all()
+    assert (out[0, 4] == 1).all() == dyn  # counts 0 only with counts
+
+
+def test_composite_dense_entry_points_launch_their_kernels(dev):
+    from gs_icp_slam_torch import cuda_build
+
+    T, ntx, tile, K = 48, 8, 16, 128
+    counts, a = _dense_inputs(T, ntx, tile, K)
+    cuda_build.reset_launch_counts()
+    for dyn in (False, True):
+        attrs = torch.as_tensor(a).to(dev).requires_grad_(True)
+        if dyn:
+            out = composite_cuda.make_composite_dyn(T, ntx, tile, K)(
+                torch.as_tensor(counts).to(dev), attrs)
+        else:
+            out = composite_cuda.make_composite(T, ntx, tile, K)(attrs)
+        out[:, :5].sum().backward()
+        assert torch.isfinite(attrs.grad).all()
+    n = {k.name: k.launches for k in cuda_build.KERNELS.values()}
+    assert all(n[k] == 1 for k in ("composite_dense_fwd",
+                                   "composite_dense_bwd",
+                                   "composite_dyn_fwd", "composite_dyn_bwd"))
 
 
 def test_rasterize_on_the_card_matches_the_cpu(dev):
