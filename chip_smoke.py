@@ -35,7 +35,11 @@
    against a numpy front-to-back oracle on a few tiles), and times kernel,
    plain version and, where one exists, a single PyTorch library call
    computing the same function (CUDA events), beside the least time the
-   card could take (bound);
+   card could take (bound).  K2 runs twice: on a random cube, and on the
+   arguments path C's last Gauss-Newton step handed it (the tracking
+   target after the last tracking keyframe, the last frame's source moved
+   by its pose), with the share of reference chunks its search culled;
+   K1-bwd must give equal bits on two launches;
 4. prints a "kernels" JSON line and, as the last line,
    {"ok": true, "device": {...}}.  The card's name and power limit
    (nvidia-smi) is the first line of output.
@@ -316,10 +320,21 @@ def run_path_c(seq, cfg, FusedEngine, RecordedDraws, cuda_build, problems):
     """FusedEngine.run on bench.py's scenario with the JAX run's draws,
     held against REF_C; then one refine call.  Counts the host syncs of
     every fused step (torch.cuda sync debug mode: each blocking copy or
-    stream synchronization inside the step)."""
+    stream synchronization inside the step), and keeps the arguments of
+    the last K2 call of the Gauss-Newton loop (returned last)."""
     import numpy as np
     import torch
 
+    from gs_icp_slam_torch.ops import gicp
+
+    search = gicp.nn_search_pre
+    last_nn = {}
+
+    def recorded_search(*a):
+        last_nn["args"] = a
+        return search(*a)
+
+    gicp.nn_search_pre = recorded_search
     cuda_build.reset_launch_counts()
     draws = RecordedDraws(DRAWS_C + REFINE_DRAWS_C)
     eng = FusedEngine(seq, cfg, device="cuda", draws=draws)
@@ -343,8 +358,11 @@ def run_path_c(seq, cfg, FusedEngine, RecordedDraws, cuda_build, problems):
 
     eng.fused = eng.fused._replace(step=counted_step)
     t0 = time.perf_counter()
-    res = eng.run(eval_render=True)
-    torch.cuda.synchronize()
+    try:
+        res = eng.run(eval_render=True)
+        torch.cuda.synchronize()
+    finally:
+        gicp.nn_search_pre = search
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
     st = eng.state
@@ -409,7 +427,7 @@ def run_path_c(seq, cfg, FusedEngine, RecordedDraws, cuda_build, problems):
     if n_bwd != 64 or not finite:
         problems.append(f"refine: composite_bwd launched {n_bwd} times "
                         f"(expected 64), parameters finite: {finite}")
-    return eng, res, launches, syncs
+    return eng, res, launches, syncs, last_nn["args"]
 
 
 def main() -> None:
@@ -517,7 +535,7 @@ def main() -> None:
     # ---- path C: FusedEngine.run, bench.py's scenario ------------------
     cfg_c = cfg_b.replace(engine=dataclasses.replace(cfg_b.engine,
                                                      fps_cap=None))
-    eng_c, res_c, launches_c, syncs = run_path_c(
+    eng_c, res_c, launches_c, syncs, nn_args_c = run_path_c(
         seq, cfg_c, FusedEngine, RecordedDraws, cuda_build, problems)
 
     # ---- path D: the dense compositors' entry points ------------------
@@ -581,6 +599,52 @@ def main() -> None:
     rv = rT.T[valid].contiguous()
     nv = int(valid.sum())
     b, by = bound(Q * nv * 9.0, Q * 12 + Tp * 16 + Q * 8)
+    # what the search did, counted by the kernel in one more call
+    ic, dc, st_cube = nn_cuda.nn1_search_counts(q, rT, bias)
+    if not (torch.equal(ic, i0) and torch.equal(dc, d0)):
+        problems.append("nn1: the counting call differs from nn1_plain")
+
+    # K2 on the tracking target: the arguments of path C's last
+    # Gauss-Newton step (query order: 8x8 pixel blocks; target order:
+    # Morton), through the same entry point
+    tq, trT, tbias, tro, tqo = nn_args_c
+    ti1, td1 = nn_cuda.nn_search_pre(*nn_args_c)
+    ti0, td0 = nn_cuda.nn1_plain(tq, trT, tbias)
+    torch.cuda.synchronize()
+    t_err = float((td1 - td0).abs().max())
+    t_idx = int((ti1 != ti0).sum())
+    if t_idx or t_err > 0.0:
+        problems.append(f"nn1 on the tracking target: {t_idx} indices "
+                        f"differ, max |dsqd| {t_err} (tolerance: exact)")
+    ic, dc, st_trk = nn_cuda.nn1_search_counts(*nn_args_c)
+    if not (torch.equal(ic, ti0) and torch.equal(dc, td0)):
+        problems.append("nn1 on the tracking target: the counting call "
+                        "differs from nn1_plain")
+    tQ, tTp, tL = tq.shape[0], trT.shape[1], tro.shape[0]
+    t_nv = int((tbias == 0).sum())
+    # the pairs the search needs on this data when it visits the chunks
+    # nearest first, one at a time (the plain model; the kernel's warps
+    # visit in parallel and compare more), 9 operations each; the
+    # queries, both orders, the target's points and bias read once, the
+    # outputs written
+    _, _, st_seq = nn_cuda.nn1_chunked_plain(*nn_args_c)
+    tb, tby = bound(st_seq["pairs"] * 9.0,
+                    tQ * 16 + tL * 4 + tTp * 16 + tQ * 8)
+    tracking = dict(
+        queries=tQ, target_slots=tTp, valid_refs=t_nv, max_abs_err=t_err,
+        ms=time_ms(lambda: nn_cuda.nn_search_pre(*nn_args_c)),
+        plain_ms=time_ms(lambda: nn_cuda.nn1_plain(tq, trT, tbias), reps=3,
+                         warmup=1),
+        bound_ms=tb, bound_by=tby,
+        library_ms=time_ms(lambda: torch.cdist(
+            tq, trT.T[tbias[0] == 0]).min(dim=1), reps=5),
+        chunks=st_trk["chunks"], groups=st_trk["groups"],
+        chunk_visits=st_trk["visits"], chunks_culled=st_trk["culled"],
+        pairs_compared=st_trk["pairs"],
+        chunk_visits_one_at_a_time=st_seq["visits"],
+        pairs_one_at_a_time=st_seq["pairs"])
+    print(json.dumps({"phase": "nn1 on the tracking target", **tracking}),
+          flush=True)
     kernels.append(dict(
         name="nn1", route="cuda", source="gs_icp_slam_torch/csrc/nn1.cu",
         replaces="gs_icp_slam_tpu/ops/nn_pallas.py:32",
@@ -591,7 +655,9 @@ def main() -> None:
         plain_ms=time_ms(lambda: nn_cuda.nn1_plain(q, rT, bias), reps=3,
                          warmup=1),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: torch.cdist(q, rv).min(dim=1), reps=5)))
+        library_ms=time_ms(lambda: torch.cdist(q, rv).min(dim=1), reps=5),
+        chunks_culled=st_cube["culled"], chunk_visits=st_cube["visits"],
+        tracking_target=tracking))
 
     # K3 at the frame-0 target's shapes: the first frame's downsampled
     # cloud, k = 20 (covariances) and k = 4 (mean_sq_dist_3nn)
@@ -708,23 +774,34 @@ def main() -> None:
         composite_cuda.composite_bwd = launch_bwd
     bargs = tuple(a.detach() if torch.is_tensor(a) else a
                   for a in captured["args"])
+    pargs = bargs[:9]  # the plain version takes no splat -> pair-row map
     d1 = composite_cuda.composite_bwd(*bargs)
-    d0 = composite_cuda.composite_bwd_plain(*bargs)
+    d2 = composite_cuda.composite_bwd(*bargs)
+    d0 = composite_cuda.composite_bwd_plain(*pargs)
     torch.cuda.synchronize()
     row_scale = d0[:10].abs().amax(1).clamp(min=1e-30)
     row_err = ((d1[:10] - d0[:10]).abs().amax(1) / row_scale).tolist()
     if not max(row_err) <= TOL_BWD_ROW:
         problems.append(f"composite_bwd: row errors {row_err} > "
                         f"{TOL_BWD_ROW} of the row's largest |gradient|")
-    walked, blended = composite_cuda.composite_bwd_work(*bargs)
+    if not torch.equal(d1, d2):
+        problems.append("composite_bwd: two launches on the same inputs "
+                        "gave different bits")
+    walked, blended = composite_cuda.composite_bwd_work(*pargs)
     counts_b, _, _, attr_b, out_b, nc_b = bargs[:6]
+    rows_b = bargs[9]
     T, P = counts_b.shape[0], out_b.shape[2]
-    # each (tile, rank) cell the block walks sends one atomic per attribute
     cells = int(torch.minimum(nc_b.amax(1), counts_b).sum())
+    # the kernel writes a cell of ten sums for every (run row, tile
+    # corner) and reads it back through the splat -> pair-row map
+    tile_b = bargs[8]
+    nsub = (-(-tile_b // min(tile_b, composite_cuda.BWD_SIDE))) ** 2
+    cell_bytes = int(counts_b.sum()) * nsub * 10 * 4
     nbytes = (T * 8 + int(counts_b.sum()) * 4 + attr_b.numel() * 4
               + T * P * 4 * (1 + 1 + 5)        # t_final, n_contrib, g 0-4
-              + attr_b.numel() * 4             # the gradient written
-              + cells * 10 * 8)                # atomics: read + write
+              + rows_b.numel() * 4             # the splat -> pair-row map
+              + 2 * cell_bytes                 # cells written and read
+              + attr_b.numel() * 4)            # the gradient written
     # from the kernel's code: ~12 operations per walked pair (offsets,
     # power, gate), ~45 more per blended pair (exp, alpha, the ten terms)
     b, by = bound(walked * 12.0 + blended * 45.0, nbytes)
@@ -736,12 +813,13 @@ def main() -> None:
         launches_path_a=launches_a["composite_bwd"],
         launches_path_b=launches_b["composite_bwd"],
         max_abs_err=float((d1 - d0).abs().max()),
-        row_err_vs_row_max=row_err,
+        row_err_vs_row_max=row_err, deterministic=bool(torch.equal(d1, d2)),
         ms=time_ms(lambda: composite_cuda.composite_bwd(*bargs)),
-        plain_ms=time_ms(lambda: composite_cuda.composite_bwd_plain(*bargs),
+        plain_ms=time_ms(lambda: composite_cuda.composite_bwd_plain(*pargs),
                          reps=2, warmup=1),
         bound_ms=b, bound_by=by, library_ms=None, pairs_walked=walked,
-        pairs_blended=blended, cells_walked=cells,
+        pairs_blended=blended, cells_walked=cells, bound_bytes=nbytes,
+        cell_bytes=cell_bytes, run_rows=int(counts_b.sum()),
         max_n_contrib=int(nc_b.max())))
 
     kernels += dense_kernel_phases(dense, launches_d, composite_cuda,

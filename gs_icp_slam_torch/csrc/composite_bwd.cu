@@ -8,67 +8,205 @@
 // Contract: the inputs of composite_fwd.cu (counts, starts, pair_slot,
 // attr (R >= 10, Vp) channel-first), its outputs out (T, 8, P) and
 // n_contrib (T, P), and g (T, 8, P), the gradient of out (rows 0-2 rgb,
-// 3 depth, 4 final transmittance are read).  d_attr (R, Vp) must be zero
-// on entry; rows 0-9 receive, summed over every pixel of every tile whose
-// run holds the splat:
+// 3 depth, 4 final transmittance are read); splat_rows (M, Vp) int32, the
+// pair rows of each column of attr (entries past a tile's counts[t], and
+// padding, are -1).  d_attr (R, Vp) is written whole; rows 0-9 receive,
+// summed over every pixel of every tile whose run holds the splat:
 //   dL/dw     = g_rgb . rgb + g_depth * depth
 //   dL/dalpha = T_before * dL/dw - (S + g_tf * t_final) / (1 - alpha)
 // with S the sum of w * dL/dw over the pixel's later blended splats, and
 // the chain through alpha = opacity * exp(power) (zero where alpha was
 // clamped at 0.99) to the mean, the conic and the opacity; rgb and depth
 // get w * g.  Ranks at or past the pixel's n_contrib get nothing: that is
-// the forward's `done` rule and the Pallas kernel's exclusion.
+// the forward's `done` rule and the Pallas kernel's exclusion.  Rows >= 10
+// are zero.
 //
 // What bounds it on the H100: arithmetic on the (pixel, splat) pairs each
-// pixel walks (about 50 fp32 operations for a blended pair, one exp), and
-// the per-splat reductions: chip_smoke.py counts both from a real view.
+// pixel walks (about 12 fp32 operations for every walked pair, about 45
+// more for a blended one, one exp), against a few MB of inputs, the cell
+// buffer and the gradient: chip_smoke.py counts both from a real view.
 //
-// Design: one block per tile and one thread per pixel (the block rounded
-// up to whole warps).  The run is streamed backwards through shared memory
-// in batches of kBatch splats, from the block's largest n_contrib down to
-// rank 0; every thread walks the same rank in lockstep, and a pixel whose
-// own n_contrib is lower contributes zeros there, so warp reductions stay
-// valid.  The transmittance before each blended splat is recovered by
-// division, T_before = T_after / (1 - alpha), starting from the saved
-// final transmittance (alpha <= 0.99 and T >= 1e-4 keep this within a few
-// ulp per splat; no per-splat checkpoints are stored).  Each splat's ten
-// gradient terms are summed across the warp with __shfl_xor_sync (skipped
-// when no lane of the warp blended it), the warp sums are added into
-// s_grad with shared-memory atomics, and after each batch one global
-// atomicAdd per (splat, attribute) and tile goes to d_attr.  This takes
-// the place of the Pallas kernel's (16, T*K) cell grid and the cell_idx
-// gather.  Global atomics make the low bits vary from run to run.  Built
+// Design, two launches:
+//  1. composite_bwd_walk: one block per side x side corner of a tile
+//     (side = 16 at the 32-pixel tiles of the mapping path, so four blocks
+//     a tile and four times as many blocks as tiles for the 132 SMs; the
+//     whole tile when tile <= 16), one thread per pixel, a warp on an 8x4
+//     patch of pixels (its pixels stop near the same rank and blend the
+//     same splats more often than a row of 16x2 does).  The tile's run is
+//     streamed backwards through shared memory in batches of kBatch
+//     splats, from the block's largest n_contrib down to rank 0, with
+//     barriers only at batch boundaries.  Inside a batch each warp starts at its own
+//     largest n_contrib (__reduce_max_sync) and skips every rank no lane
+//     of it needs: above that bound, and splats whose footprint provably
+//     misses the warp's pixel rectangle (patch_culled: most ranks a warp
+//     reaches blend on none of its lanes).  Inside a walked rank, a
+//     pixel whose power falls below the splat's pmin skips the exp (see
+//     PackedSplat).  For each rank a warp walks, __ballot_sync tells how
+//     many lanes blended: none (ten zeros), one (that lane's terms are the
+//     sums, no shuffle) or more (a transposing reduce-scatter: each
+//     halving step sends half of what a lane still holds, 12 shuffles for
+//     the ten terms instead of 50 for ten butterflies).  The warp's ten
+//     sums go to per-warp partials, s_part[warp][term][rank], with plain
+//     stores; after the batch one thread per (rank, term) adds them in
+//     warp order (only warps that walked the rank: s_wmask) and stores
+//     the sum, the block's share of cell (starts[t] + rank, corner, term).
+//     Ranks in [walk, counts[t]) get zeros, so every row of every run is
+//     written.  The transmittance before each blended splat is recovered
+//     by division, T_before = T_after / (1 - alpha), from the saved final
+//     transmittance (alpha <= 0.99 and T >= 1e-4 keep this within a few
+//     ulp per splat; no per-splat checkpoints are stored).
+//  2. composite_bwd_gather: one thread per column of attr sums the cells
+//     of the splat's pair rows (splat_rows, at most tile_span^2 from the
+//     binning) and the tile corners, in a fixed order.
+// No atomics anywhere: two launches on the same inputs give equal bits,
+// as the Pallas VJP's (16, T*K) cell grid and cell_idx gather do.  Built
 // without fused multiply-add, like the forward, so that the recomputed
-// power and alpha round as they did there and every gate decision repeats;
-// the per-pair arithmetic is shared with K1-fwd and K4
+// power and alpha round as they did there and every gate decision
+// repeats; the per-pair arithmetic is shared with K1-fwd and K4
 // (composite_common.cuh).
 #include "common.cuh"
 #include "composite_common.cuh"
 
 namespace {
 
-constexpr int kBatch = 256;
+constexpr int kBatch = 128;          // ranks staged per batch
+constexpr int kStride = kBatch + 1;  // s_part row, padded: lanes of one
+                                     // rank store to distinct banks
+constexpr int kMaxWarps = 32;
+constexpr unsigned kAll = 0xffffffffu;
 using gs::kTerms;
 
+// One splat's ten attributes as three 16-byte words, read with three
+// broadcast loads: (mx, my, ca, cb), (cc, opacity, r, g), (b, depth,
+// pmin).  Below pmin = log((1/255) / opacity) - 0.05 a power is gated out
+// for sure: opacity * exp(power) < 0.952 / 255, far below the gate even
+// after exp's and log's rounding (and every power is, for an opacity <= 0
+// or NaN: pmin = +inf).  The walk skips such pairs before their exp.
+struct alignas(16) PackedSplat {
+  float4 a, b, c;
+};
+
+__device__ __forceinline__ float gate_power(float op) {
+  return op > 0.f ? logf(gs::kAlphaMin / op) - 0.05f : INFINITY;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(kAll, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kAll, v, off));
+  return v;
+}
+
+// True when no pixel of the rectangle [xlo, xhi] x [ylo, yhi] can reach a
+// power of pmin, so that a warp whose pixels lie in it skips the splat.
+// For a positive definite conic (a, b; b, c) the power at offset d is
+// -0.5 d'Ad <= -0.5 lam |d|^2 with lam = det / (a + c) <= the smaller
+// eigenvalue, and |d|^2 >= gx^2 + gy^2, the squared distance from the
+// splat's centre to the rectangle.  The condition number is held below
+// 1e4, so that the power the walk computes is within ~1e-2 of -0.5 d'Ad
+// relative to lam |d|^2, and the bound is shrunk by 2% and an absolute
+// 0.01 (on top of pmin's own margin).  Any other conic culls nothing.
+__device__ __forceinline__ bool patch_culled(const PackedSplat& s, float xlo,
+                                             float xhi, float ylo,
+                                             float yhi) {
+  const float a = s.a.z, b = s.a.w, c = s.b.x;
+  if (!(a > 0.f && c > 0.f)) return false;
+  const float det = a * c - b * b, tr = a + c;
+  if (!(det * 1e4f > tr * tr)) return false;
+  const float lam = det / tr;
+  const float gx = fmaxf(fmaxf(xlo - s.a.x, s.a.x - xhi), 0.f);
+  const float gy = fmaxf(fmaxf(ylo - s.a.y, s.a.y - yhi), 0.f);
+  return 0.5f * lam * (gx * gx + gy * gy) * 0.98f > 0.01f - s.c.z;
+}
+
+__device__ __forceinline__ gs::Splat unpack(const PackedSplat& s) {
+  return gs::Splat{s.a.x, s.a.y, s.a.z, s.a.w, s.b.x,
+                   s.b.z, s.b.w, s.c.x, s.b.y, s.c.y};
+}
+
+// The warp's sum of each of the ten terms v[0..9], scattered over the
+// lanes: lane l gets the sum of term scatter_term(l) (the lanes of an
+// even/odd pair get the same bits).  Step 1 (xor 16) keeps terms
+// 5*b4 + [0, 5), step 2 (xor 8) 3*b3 + [0, 3) of those, step 3 (xor 4)
+// 2*b2 + [0, 2), step 4 (xor 2) one, step 5 (xor 1) adds the pair;
+// odd counts are padded with a zero.  5 + 3 + 2 + 1 + 1 = 12 shuffles.
+__device__ __forceinline__ float reduce_scatter10(const float (&v)[kTerms],
+                                                  int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+  float a[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const float lo = v[i], hi = v[i + 5];
+    a[i] = (b4 ? hi : lo) + __shfl_xor_sync(kAll, b4 ? lo : hi, 16);
+  }
+  float b[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float lo = a[i], hi = i + 3 < 5 ? a[i + 3] : 0.f;
+    b[i] = (b3 ? hi : lo) + __shfl_xor_sync(kAll, b3 ? lo : hi, 8);
+  }
+  float c[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lo = b[i], hi = i + 2 < 3 ? b[i + 2] : 0.f;
+    c[i] = (b2 ? hi : lo) + __shfl_xor_sync(kAll, b2 ? lo : hi, 4);
+  }
+  const float d =
+      (b1 ? c[1] : c[0]) + __shfl_xor_sync(kAll, b1 ? c[0] : c[1], 2);
+  return d + __shfl_xor_sync(kAll, d, 1);
+}
+
+// The term whose sum reduce_scatter10 leaves on this lane; -1 for odd
+// lanes (their even neighbour stores) and for lanes that hold padding.
+__device__ __forceinline__ int scatter_term(int lane) {
+  const int ib = 2 * ((lane >> 2) & 1) + ((lane >> 1) & 1);  // in step 2's 3
+  const int ia = 3 * ((lane >> 3) & 1) + ib;                 // in step 1's 5
+  return ((lane & 1) || ib >= 3 || ia >= 5) ? -1
+                                            : 5 * ((lane >> 4) & 1) + ia;
+}
+
 __global__ void __launch_bounds__(1024)
-composite_bwd_kernel(const int* __restrict__ counts,
-                     const int* __restrict__ starts,
-                     const int* __restrict__ pair_slot,
-                     const float* __restrict__ attr, int Vp, int ntx,
-                     int tile, const float* __restrict__ out,
-                     const int* __restrict__ n_contrib,
-                     const float* __restrict__ g,
-                     float* __restrict__ d_attr) {
-  __shared__ float s_attr[10][kBatch];
-  __shared__ float s_grad[kTerms][kBatch];
-  __shared__ int s_walk;
-  const int t = blockIdx.x;
+composite_bwd_walk(const int* __restrict__ counts,
+                   const int* __restrict__ starts,
+                   const int* __restrict__ pair_slot,
+                   const float* __restrict__ attr, int Vp, int ntx, int tile,
+                   int side, const float* __restrict__ out,
+                   const int* __restrict__ n_contrib,
+                   const float* __restrict__ g, float* __restrict__ cell) {
+  extern __shared__ float4 s_dyn[];
+  PackedSplat* s_splat = reinterpret_cast<PackedSplat*>(s_dyn);
+  float* s_part = reinterpret_cast<float*>(s_splat + kBatch);
+  __shared__ int s_wwalk[kMaxWarps];
+  __shared__ unsigned s_wmask[kMaxWarps][kBatch / 32];  // ranks walked
+  const int nsx = (tile + side - 1) / side;
+  const int nsub = nsx * nsx;
+  const int t = blockIdx.x / nsub;
+  const int sub = blockIdx.x - t * nsub;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  // a warp covers an 8 x 4 patch where side allows (pixels of one warp
+  // then stop near the same rank and blend the same splats), else whole
+  // rows
+  const int wx = side / 8;  // warps across a row of the corner
+  const int lx = side % 8 == 0 ? (lane & 7) + 8 * (warp % wx) : tid % side;
+  const int ly = side % 8 == 0 ? (lane >> 3) + 4 * (warp / wx) : tid / side;
+  const int x = (sub % nsx) * side + lx;
+  const int y = (sub / nsx) * side + ly;
+  const bool pixel = tid < side * side && x < tile && y < tile;
   const int P = tile * tile;
-  const int pid = threadIdx.x;
-  const bool pixel = pid < P;
-  const int lane = pid & 31;
-  const float px = static_cast<float>((t % ntx) * tile + pid % tile);
-  const float py = static_cast<float>((t / ntx) * tile + pid / tile);
+  const int pid = y * tile + x;
+  const float px = static_cast<float>((t % ntx) * tile + x);
+  const float py = static_cast<float>((t / ntx) * tile + y);
+  const int count = counts[t];
   const int start = starts[t];
   const size_t base = static_cast<size_t>(t) * 8 * P + pid;
 
@@ -82,74 +220,166 @@ composite_bwd_kernel(const int* __restrict__ counts,
     p.g_d = g[base + 3 * P];
     p.gtf_tf = g[base + 4 * P] * p.tr;
   }
-  if (pid == 0) s_walk = 0;
+  // the warp's pixel rectangle, for the per-splat cull
+  const float xlo = warp_min(pixel ? px : INFINITY);
+  const float xhi = warp_max(pixel ? px : -INFINITY);
+  const float ylo = warp_min(pixel ? py : INFINITY);
+  const float yhi = warp_max(pixel ? py : -INFINITY);
+  const int wwalk = __reduce_max_sync(kAll, nc);
+  if (lane == 0) s_wwalk[warp] = wwalk;
   __syncthreads();
-  if (nc > 0) atomicMax(&s_walk, nc);
-  __syncthreads();
-  const int walk = min(s_walk, counts[t]);
+  int walk = 0;
+  for (int w = 0; w < nwarps; ++w) walk = max(walk, s_wwalk[w]);
+  walk = min(walk, count);
+  // this corner's cells: (row, corner, term) at ((row * nsub + sub) * 10
+  // + term), row = start + rank
+  float* cell_t = cell + (static_cast<size_t>(start) * nsub + sub) * kTerms;
+  float* part = s_part + warp * kTerms * kStride;
 
   for (int b0 = ((walk - 1) / kBatch) * kBatch; walk > 0 && b0 >= 0;
        b0 -= kBatch) {
     const int n = min(kBatch, walk - b0);
-    __syncthreads();  // the previous batch's flush has read s_grad
-    for (int j = pid; j < n; j += blockDim.x) {
+    __syncthreads();  // the previous batch's partials have been read
+    for (int j = tid; j < n; j += blockDim.x) {
       const int s = pair_slot[start + b0 + j];
-#pragma unroll
-      for (int c = 0; c < 10; ++c) {
-        s_attr[c][j] = attr[c * Vp + s];
-        s_grad[c][j] = 0.f;
-      }
+      s_splat[j] = PackedSplat{
+          make_float4(attr[s], attr[Vp + s], attr[2 * Vp + s],
+                      attr[3 * Vp + s]),
+          make_float4(attr[4 * Vp + s], attr[8 * Vp + s], attr[5 * Vp + s],
+                      attr[6 * Vp + s]),
+          make_float4(attr[7 * Vp + s], attr[9 * Vp + s],
+                      gate_power(attr[8 * Vp + s]), 0.f)};
     }
     __syncthreads();
-    for (int j = n - 1; j >= 0; --j) {
-      float v[kTerms];
+    // the ranks this warp walks: below its own largest n_contrib, and not
+    // culled for its rectangle (one bit each, kept for the sum below)
+    const int top = min(n, wwalk - b0);
+    unsigned walked[kBatch / 32];
 #pragma unroll
-      for (int c = 0; c < kTerms; ++c) v[c] = 0.f;
-      bool blended = false;
-      if (b0 + j < nc)
-        blended = gs::bwd_pair(p, px, py, gs::splat_at(s_attr, j), v);
-      if (__any_sync(0xffffffffu, blended)) {
+    for (int q = 0; q < kBatch / 32; ++q) {
+      const int j = q * 32 + lane;
+      walked[q] = __ballot_sync(
+          kAll, j < top && !patch_culled(s_splat[j], xlo, xhi, ylo, yhi));
+      if (lane == 0) s_wmask[warp][q] = walked[q];
+    }
 #pragma unroll
-        for (int c = 0; c < kTerms; ++c) v[c] = gs::warp_sum(v[c]);
-        if (lane == 0) {
+    for (int q = kBatch / 32 - 1; q >= 0; --q) {
+      for (unsigned bits = walked[q]; bits != 0u;) {
+        const int jb = 31 - __clz(bits);
+        bits &= ~(1u << jb);
+        const int j = q * 32 + jb;  // ranks in decreasing order
+        float v[kTerms];
 #pragma unroll
-          for (int c = 0; c < kTerms; ++c) atomicAdd(&s_grad[c][j], v[c]);
+        for (int c = 0; c < kTerms; ++c) v[c] = 0.f;
+        bool blended = false;
+        if (b0 + j < nc) {
+          const gs::Splat sp = unpack(s_splat[j]);
+          if (!(gs::splat_power(sp, px - sp.mx, py - sp.my) <
+                s_splat[j].c.z))
+            blended = gs::bwd_pair(p, px, py, sp, v);
+        }
+        const unsigned m = __ballot_sync(kAll, blended);
+        if (m == 0u) {
+          if (lane < kTerms) part[lane * kStride + j] = 0.f;
+        } else if ((m & (m - 1u)) == 0u) {
+          if (blended) {
+#pragma unroll
+            for (int c = 0; c < kTerms; ++c) part[c * kStride + j] = v[c];
+          }
+        } else {
+          const float s = reduce_scatter10(v, lane);
+          const int c = scatter_term(lane);
+          if (c >= 0) part[c * kStride + j] = s;
         }
       }
     }
     __syncthreads();
-    for (int j = pid; j < n; j += blockDim.x) {
-      const int s = pair_slot[start + b0 + j];
-#pragma unroll
-      for (int c = 0; c < kTerms; ++c) {
-        const float d = s_grad[c][j];
-        if (d != 0.f) atomicAdd(&d_attr[c * Vp + s], d);
+    for (int i = tid; i < kTerms * n; i += blockDim.x) {
+      const int j = i / kTerms;
+      const int c = i - j * kTerms;
+      float sum = 0.f;
+      for (int w = 0; w < nwarps; ++w) {
+        if ((s_wmask[w][j >> 5] >> (j & 31)) & 1u)
+          sum = sum + s_part[(w * kTerms + c) * kStride + j];
       }
+      cell_t[static_cast<size_t>(b0 + j) * nsub * kTerms + c] = sum;
     }
   }
+  // ranks [walk, count): no pixel of this corner reached them
+  const int rest = count - walk;
+  for (int i = tid; i < kTerms * rest; i += blockDim.x) {
+    const int j = i / kTerms;
+    cell_t[static_cast<size_t>(walk + j) * nsub * kTerms + (i - j * kTerms)] =
+        0.f;
+  }
+}
+
+__global__ void composite_bwd_gather(const int* __restrict__ splat_rows,
+                                     int M, int Vp, int R, int nsub,
+                                     const float* __restrict__ cell,
+                                     float* __restrict__ d_attr) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= Vp) return;
+  float acc[kTerms];
+#pragma unroll
+  for (int c = 0; c < kTerms; ++c) acc[c] = 0.f;
+  for (int m = 0; m < M; ++m) {
+    const int r = splat_rows[static_cast<size_t>(m) * Vp + v];
+    if (r < 0) continue;
+    const float* cr = cell + static_cast<size_t>(r) * nsub * kTerms;
+    for (int s = 0; s < nsub; ++s) {
+#pragma unroll
+      for (int c = 0; c < kTerms; ++c) acc[c] = acc[c] + cr[s * kTerms + c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kTerms; ++c)
+    d_attr[static_cast<size_t>(c) * Vp + v] = acc[c];
+  for (int c = kTerms; c < R; ++c)
+    d_attr[static_cast<size_t>(c) * Vp + v] = 0.f;
 }
 
 }  // namespace
 
 GS_EXPORT_ERROR_STRING
 
-// counts, starts (T,) int32; pair_slot (Np,) int32; attr (>= 10, Vp)
+// counts, starts (T,) int32; pair_slot (Np,) int32; attr (R >= 10, Vp)
 // float32 channel-first; out, g (T, 8, tile*tile) float32; n_contrib
-// (T, tile*tile) int32; d_attr (>= 10, Vp) float32, zero on entry;
-// tile*tile <= 1024.
+// (T, tile*tile) int32; splat_rows (M, Vp) int32; cell scratch of
+// Np * nsub * 10 floats, nsub = ceil(tile / side)^2; d_attr (R, Vp)
+// float32.  tile*tile <= 1024, 1 <= side <= tile.
 extern "C" int composite_bwd_launch(const int* counts, const int* starts,
                                     const int* pair_slot, const float* attr,
-                                    int T, int Vp, int ntx, int tile,
-                                    const float* out, const int* n_contrib,
-                                    const float* g, float* d_attr,
-                                    void* stream_ptr) {
+                                    int T, int R, int Vp, int ntx, int tile,
+                                    int side, const float* out,
+                                    const int* n_contrib, const float* g,
+                                    const int* splat_rows, int M, float* cell,
+                                    float* d_attr, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int P = tile * tile;
-  if (P < 1 || P > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (T <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = (P + 31) / 32 * 32;
-  composite_bwd_kernel<<<T, threads, 0, stream>>>(
-      counts, starts, pair_slot, attr, Vp, ntx, tile, out, n_contrib, g,
-      d_attr);
+  if (P < 1 || P > 1024 || side < 1 || side > tile || R < kTerms || M < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = (side * side + 31) / 32 * 32;
+  const int nsx = (tile + side - 1) / side;
+  const int smem = static_cast<int>(kBatch * sizeof(PackedSplat)) +
+                   threads / 32 * kTerms * kStride *
+                       static_cast<int>(sizeof(float));
+  if (T > 0) {
+    cudaError_t err = cudaSuccess;
+    if (smem > 48 * 1024)  // above the default: blocks of more than 8 warps
+      err = cudaFuncSetAttribute(
+          composite_bwd_walk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    composite_bwd_walk<<<T * nsx * nsx, threads, smem, stream>>>(
+        counts, starts, pair_slot, attr, Vp, ntx, tile, side, out, n_contrib,
+        g, cell);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (Vp > 0) {
+    composite_bwd_gather<<<(Vp + 255) / 256, 256, 0, stream>>>(
+        splat_rows, M, Vp, R, nsx * nsx, cell, d_attr);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,95 +6,439 @@
 //
 // Contract: for each query q (Q, 3) the index and squared distance of the
 // nearest reference among rT (3, Tp) channel-first, where the distance is
-// (q - r)^2 summed in the order x, y, z plus bias[r] (0 on a valid
-// reference, +3.4e38 on an invalid one).  Ties go to the lowest index.  A
-// query with no valid reference gets index 0 and 3.4e38.
+// ((dx*dx + dy*dy) + dz*dz) + bias[r], each operation rounded on its own
+// (bias 0 on a valid reference, +3.4e38 on an invalid one; a reference
+// with any other bias is taken as invalid).  Ties go to the lowest index.
+// A query with no valid reference gets index 0 and 3.4e38.  Two optional
+// orders change the speed and never the result: rorder (L,) int32, a
+// permutation of [0, L) with L >= Tp (entries >= Tp are skipped), lists
+// the references so that neighbours in space are neighbours in it;
+// qorder (Q,) int32, a permutation of [0, Q), does the same for the
+// queries.  Without them the index order is used.
 //
-// What bounds it on the H100: arithmetic.  Q x Tp pairs at ~9 fp32
-// operations each (8.2k x 65.5k at tracking geometry: 4.8 GFLOP, 72 us at
-// the 67 TFLOP/s fp32 rate), against ~1.2 MB of input (0.4 us at
-// 3.35 TB/s).
+// What bounds it on the H100: the pairs it must compare.  A brute-force
+// scan compares Q x Tp (8.2k x 65.5k at tracking geometry, 9 fp32
+// operations each: 72 us at the 67 TFLOP/s fp32 rate) and is bound by the
+// instructions it issues on pairs that cannot win.  The G-ICP distances
+// are centimetres in a scene metres across, so most pairs can be ruled
+// out by a bound on whole chunks.
 //
-// Design: one thread per query keeps its running (distance, index); the
-// block stages reference tiles of (x, y, z, bias) as float4 in shared
-// memory, so every reference is read from device memory once per block
-// and broadcast to all its threads.  8.2k queries alone fill only 64
-// blocks of 128 threads, half the card's 132 SMs, so the reference axis
-// is split across blockIdx.y as well (about 8 blocks per SM).  Each
-// split's winner is merged with one 64-bit atomicMin of
-// (distance bits << 32 | index): distances are non-negative, so their bit
-// patterns order like the floats, and the low word then breaks a tie
-// toward the lower index.  Inside a split the update is strictly-less in
-// increasing index order, so the tie rule holds there too.  The merged
-// word starts at (3.4e38, 0), the Pallas kernel's initial state.
-#include <algorithm>
-
+// Design, two launches:
+//  1. nn1_chunks: one block per chunk of kChunk positions of the
+//     reference order.  It drops the invalid references (a valid bias is
+//     0, so leaving out its add changes no bit), packs the rest in order
+//     as (x, y, z, original index), and writes their count and their
+//     axis-aligned box.
+//  2. nn1_search: one block per group of kGroup queries (taken in qorder),
+//     which fills the card with groups rather than with reference splits:
+//     a split whose chunks all lie far away would hold no tight best and
+//     could never cull.  Each of the block's 16 warps holds all 64
+//     queries (two a lane, register-blocked: one reference read feeds two
+//     pairs).  The block computes a lower bound (below) between its
+//     queries' box and every chunk's box and sorts the chunks by it
+//     (bitonic, in shared memory).  The nearest kCoop chunks are compared
+//     one at a time by all warps together, which gives every query a
+//     close best; then each warp walks its own share of the rest of the
+//     sorted list (chunks kCoop + warp, + 16, ...) with no barrier,
+//     staging each chunk through its own shared buffer (all loads in
+//     flight at once) and comparing four references at a time (eight
+//     independent distances, then one test of each query's nearest of
+//     the four against its best).  A warp stops at the first chunk whose
+//     bound is strictly greater than the largest best of its queries (all
+//     later ones are at least as far), and skips a chunk when no query's
+//     own bound to it is at most its best.  "Strictly" keeps the tie rule:
+//     a reference at an equal distance and a lower index is never skipped.
+//     A lane keeps (distance, index) and takes a reference when it is
+//     nearer, or as near with a lower index (chunks arrive out of index
+//     order).  Warps share their bests through a 64-bit (distance bits <<
+//     32 | index) word per query in shared memory: atomicMin to merge, an
+//     atomic read before each chunk (distances are >= +0, so their bits
+//     order like the floats).  A best read before another warp's merge is
+//     only larger, so every skip and stop stays safe.  The best starts at
+//     (3.4e38, 0), the Pallas kernel's initial state.  Two counters in the
+//     scratch buffer count the (group, chunk) visits and the references
+//     compared.
+//
+// Why this schedule: a barrier after every chunk leaves a block waiting
+// on each chunk's loads, which costs most where nothing culls; warps on
+// their own from the first chunk compare many far chunks before any best
+// is tight; warps reading references from device memory one at a time
+// wait on every load.
+//
+// The lower bound.  For boxes [qlo, qhi] (queries) and [lo, hi] (a
+// chunk), per axis g = max(qlo - hi, lo - qhi, 0) and
+// lb = ((gx*gx + gy*gy) + gz*gz) * (1 - 2^-20), each operation rounded to
+// nearest on its own (built with -fmad=false).  For a query q and a
+// reference r in the boxes, q.x - r.x >= qlo.x - hi.x and r.x - q.x >=
+// lo.x - qhi.x hold exactly, and rounding to nearest is monotone, so
+// |fl(q.x - r.x)| >= fl(gap) >= 0, and every later operation (a square of
+// a larger non-negative number, a sum of larger addends) rounds to a
+// value at least as large: lb before the shrink is already <= the rounded
+// distance of every pair of the two boxes.  The shrink by 2^-20 is a
+// margin on top of that argument; a NaN gap counts as 0.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;  // references per shared-memory stage (16 KB)
-constexpr int kTargetBlocks = 132 * 8;
+constexpr int kChunk = 128;       // references per chunk
+constexpr int kGroup = 64;        // queries per block, two a lane
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kCoop = 4;          // nearest chunks compared by all warps
+constexpr int kMaxChunks = 8192;  // the sort buffer: 64 KB of shared memory
+constexpr float kShrink = 1.0f - 1.0f / 1048576.0f;
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ unsigned long long pack(float d, int i) {
   return (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
          static_cast<unsigned int>(i);
 }
 
-__global__ void nn1_init(unsigned long long* best, int Q) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < Q) best[i] = pack(GS_BIG, 0);
+// The squared distance of a valid reference (bias 0, its add left out).
+__device__ __forceinline__ float sqdist(float qx, float qy, float qz,
+                                        float4 r) {
+  const float dx = __fsub_rn(qx, r.x);
+  const float dy = __fsub_rn(qy, r.y);
+  const float dz = __fsub_rn(qz, r.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
+__device__ __forceinline__ float gap(float qlo, float qhi, float lo,
+                                     float hi) {
+  return fmaxf(fmaxf(__fsub_rn(qlo, hi), __fsub_rn(lo, qhi)), 0.f);
+}
+
+// The lower bound above, between [qlo, qhi] and [lo, hi] (.xyz).
+__device__ __forceinline__ float box_lb(float3 qlo, float3 qhi, float4 lo,
+                                        float4 hi) {
+  const float gx = gap(qlo.x, qhi.x, lo.x, hi.x);
+  const float gy = gap(qlo.y, qhi.y, lo.y, hi.y);
+  const float gz = gap(qlo.z, qhi.z, lo.z, hi.z);
+  return __fmul_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                __fmul_rn(gz, gz)),
+      kShrink);
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(kAll, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kAll, v, off));
+  return v;
+}
+
+__global__ void __launch_bounds__(kChunk)
+nn1_chunks(const float* __restrict__ rT, const float* __restrict__ bias,
+           const int* __restrict__ rorder, int L, int Tp,
+           float4* __restrict__ cref, float4* __restrict__ cbox,
+           int* __restrict__ ccount,
+           unsigned long long* __restrict__ counters) {
+  __shared__ int s_n[kChunk / 32];
+  __shared__ float s_box[6][kChunk / 32];
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int j = c * kChunk + tid;
+  if (j == 0) counters[0] = counters[1] = 0ull;
+  int slot = -1;
+  if (j < L) slot = rorder == nullptr ? j : rorder[j];
+  const bool in = slot >= 0 && slot < Tp && bias[slot] == 0.f;
+  float x = 0.f, y = 0.f, z = 0.f;
+  if (in) {
+    x = rT[slot];
+    y = rT[Tp + slot];
+    z = rT[2 * Tp + slot];
+  }
+  const unsigned m = __ballot_sync(kAll, in);
+  float b[6] = {in ? x : INFINITY,  in ? y : INFINITY,  in ? z : INFINITY,
+                in ? x : -INFINITY, in ? y : -INFINITY, in ? z : -INFINITY};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    b[k] = warp_min(b[k]);
+    b[k + 3] = warp_max(b[k + 3]);
+  }
+  if (lane == 0) {
+    s_n[warp] = __popc(m);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s_box[k][warp] = b[k];
+  }
+  __syncthreads();
+  int off = 0, total = 0;
+  for (int w = 0; w < kChunk / 32; ++w) {
+    off += w < warp ? s_n[w] : 0;
+    total += s_n[w];
+  }
+  if (in) {
+    cref[static_cast<size_t>(c) * kChunk + off +
+         __popc(m & ((1u << lane) - 1u))] =
+        make_float4(x, y, z, __int_as_float(slot));
+  }
+  if (tid == 0) {
+    float4 lo = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
+    float4 hi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.f);
+    for (int w = 0; w < kChunk / 32; ++w) {
+      lo.x = fminf(lo.x, s_box[0][w]);
+      lo.y = fminf(lo.y, s_box[1][w]);
+      lo.z = fminf(lo.z, s_box[2][w]);
+      hi.x = fmaxf(hi.x, s_box[3][w]);
+      hi.y = fmaxf(hi.y, s_box[4][w]);
+      hi.z = fmaxf(hi.z, s_box[5][w]);
+    }
+    cbox[2 * c] = lo;
+    cbox[2 * c + 1] = hi;
+    ccount[c] = total;
+  }
+}
+
+// One query slot of a lane: its index (-1 past Q), point and best; live
+// when its point is finite (a query with an inf or NaN coordinate is at
+// no finite distance from anything, keeps (3.4e38, 0), and neither widens
+// the group's box nor asks for a chunk).
+struct Query {
+  int q;
+  bool live;
+  float x, y, z;
+  float bd;
+  int bi;
+};
+
+__device__ __forceinline__ Query load_query(const float* __restrict__ query,
+                                            const int* __restrict__ qorder,
+                                            int Q, int k) {
+  Query a{-1, false, 0.f, 0.f, 0.f, GS_BIG, 0};
+  if (k < Q) {
+    a.q = qorder == nullptr ? k : qorder[k];
+    a.x = query[3 * a.q + 0];
+    a.y = query[3 * a.q + 1];
+    a.z = query[3 * a.q + 2];
+    a.live = isfinite(a.x) && isfinite(a.y) && isfinite(a.z);
+  }
+  return a;
+}
+
+// Take a reference at squared distance d (original index in the bits of
+// rw) if it is nearer than the best, or as near with a lower index;
+// returns whether it was taken.
+__device__ __forceinline__ bool offer(Query& a, float d, float rw) {
+  if (d <= a.bd) {
+    const int ri = __float_as_int(rw);
+    if (d < a.bd || ri < a.bi) {
+      a.bd = d;
+      a.bi = ri;
+      return true;
+    }
+  }
+  return false;
+}
+
+__device__ __forceinline__ bool offer(Query& a, float4 r) {
+  return offer(a, sqdist(a.x, a.y, a.z, r), r.w);
+}
+
+// Take the merged best m when it beats the lane's own.
+__device__ __forceinline__ void take(Query& a, unsigned long long m) {
+  if (m < pack(a.bd, a.bi)) {
+    a.bd = __uint_as_float(static_cast<unsigned int>(m >> 32));
+    a.bi = static_cast<int>(m & 0xffffffffull);
+  }
+}
+
+// Does this query still need chunk [lo, hi]: its own bound is at most its
+// best.
+__device__ __forceinline__ bool needs(const Query& a, float4 lo, float4 hi) {
+  const float3 p = make_float3(a.x, a.y, a.z);
+  return a.live && box_lb(p, p, lo, hi) <= a.bd;
 }
 
 __global__ void __launch_bounds__(kThreads)
-nn1_kernel(const float* __restrict__ query, const float* __restrict__ rT,
-           const float* __restrict__ bias, int Q, int Tp, int chunk,
-           unsigned long long* __restrict__ best) {
-  __shared__ float4 sref[kTile];
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = qi < Q;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    qx = query[3 * qi + 0];
-    qy = query[3 * qi + 1];
-    qz = query[3 * qi + 2];
-  }
-  const int r0 = blockIdx.y * chunk;
-  const int r1 = min(r0 + chunk, Tp);
-  float bd = GS_BIG;
-  int bi = 0;
-  bool found = false;
-  for (int base = r0; base < r1; base += kTile) {
-    const int n = min(kTile, r1 - base);
-    __syncthreads();
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      sref[j] = make_float4(rT[base + j], rT[Tp + base + j],
-                            rT[2 * Tp + base + j], bias[base + j]);
+nn1_search(const float* __restrict__ query, const int* __restrict__ qorder,
+           int Q, const float4* __restrict__ cref,
+           const float4* __restrict__ cbox, const int* __restrict__ ccount,
+           int nch, int nsort, int* __restrict__ idx,
+           float* __restrict__ sqd, unsigned long long* __restrict__ counters) {
+  // dynamic: the warps' chunk buffers (kWarps x kChunk float4), then the
+  // nsort (bound bits, chunk) keys
+  extern __shared__ float4 s_dyn[];
+  float4* s_ref = s_dyn;
+  auto* s_key = reinterpret_cast<unsigned long long*>(s_dyn + kWarps * kChunk);
+  __shared__ unsigned long long s_best[kGroup];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g0 = blockIdx.x * kGroup;
+  Query a = load_query(query, qorder, Q, g0 + lane);
+  Query b = load_query(query, qorder, Q, g0 + 32 + lane);
+
+  // the group's box (every warp computes the same one)
+  float3 glo, ghi;
+  {
+    float bx[6];
+    bx[0] = fminf(a.live ? a.x : INFINITY, b.live ? b.x : INFINITY);
+    bx[1] = fminf(a.live ? a.y : INFINITY, b.live ? b.y : INFINITY);
+    bx[2] = fminf(a.live ? a.z : INFINITY, b.live ? b.z : INFINITY);
+    bx[3] = fmaxf(a.live ? a.x : -INFINITY, b.live ? b.x : -INFINITY);
+    bx[4] = fmaxf(a.live ? a.y : -INFINITY, b.live ? b.y : -INFINITY);
+    bx[5] = fmaxf(a.live ? a.z : -INFINITY, b.live ? b.z : -INFINITY);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      bx[k] = warp_min(bx[k]);
+      bx[k + 3] = warp_max(bx[k + 3]);
     }
-    __syncthreads();
-    if (active) {
-#pragma unroll 8
-      for (int j = 0; j < n; ++j) {
-        const float d = gs_sqdist_bias(qx, qy, qz, sref[j]);
-        if (d < bd) {
-          bd = d;
-          bi = base + j;
-          found = true;
+    glo = make_float3(bx[0], bx[1], bx[2]);
+    ghi = make_float3(bx[3], bx[4], bx[5]);
+  }
+  if (tid < kGroup) s_best[tid] = pack(GS_BIG, 0);
+  for (int c = tid; c < nsort; c += kThreads) {
+    unsigned long long key = ~0ull;
+    if (c < nch) {
+      const float lb = ccount[c] > 0
+                           ? box_lb(glo, ghi, cbox[2 * c], cbox[2 * c + 1])
+                           : INFINITY;
+      key = pack(lb, c);
+    }
+    s_key[c] = key;
+  }
+  __syncthreads();
+  // bitonic sort of the (bound, chunk) keys, ascending
+  for (int k = 2; k <= nsort; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < nsort; i += kThreads) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const unsigned long long u = s_key[i], w = s_key[ixj];
+          if ((u > w) == ((i & k) == 0)) {
+            s_key[i] = w;
+            s_key[ixj] = u;
+          }
         }
       }
+      __syncthreads();
     }
   }
-  if (active && found) atomicMin(&best[qi], pack(bd, bi));
-}
 
-__global__ void nn1_finish(const unsigned long long* __restrict__ best, int Q,
-                           int* __restrict__ idx, float* __restrict__ sqd) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < Q) {
-    const unsigned long long b = best[i];
-    idx[i] = static_cast<int>(b & 0xffffffffull);
-    sqd[i] = __uint_as_float(static_cast<unsigned int>(b >> 32));
+  // The nearest kCoop chunks first, one at a time, every warp on a share
+  // of each chunk's references: the queries get close bests before the
+  // warps go their own ways.  The decisions are the same in every warp
+  // (the same queries, bests and chunk); two barriers a chunk keep the
+  // bests read back equal.
+  int k0 = 0;
+  for (; k0 < min(nch, kCoop); ++k0) {
+    const unsigned long long key = s_key[k0];
+    const float lb = __uint_as_float(static_cast<unsigned int>(key >> 32));
+    const int c = static_cast<int>(key & 0xffffffffull);
+    const float worst = warp_max(fmaxf(a.live ? a.bd : 0.f,
+                                       b.live ? b.bd : 0.f));
+    if (lb > worst) {  // every later chunk is at least as far
+      k0 = nch;
+      break;
+    }
+    const float4 lo = cbox[2 * c];
+    const float4 hi = cbox[2 * c + 1];
+    if (!__any_sync(kAll, needs(a, lo, hi) || needs(b, lo, hi))) continue;
+    const int n = ccount[c];
+    if (tid == 0) {
+      atomicAdd(&counters[0], 1ull);
+      atomicAdd(&counters[1], static_cast<unsigned long long>(n));
+    }
+    const float4* cr = cref + static_cast<size_t>(c) * kChunk;
+    for (int j = tid; j < n; j += kThreads) s_ref[j] = cr[j];
+    __syncthreads();
+    bool ta = false, tb = false;
+    for (int j = warp; j < n; j += kWarps) {
+      const float4 r = s_ref[j];
+      ta |= offer(a, r);
+      tb |= offer(b, r);
+    }
+    if (ta) atomicMin(&s_best[lane], pack(a.bd, a.bi));
+    if (tb) atomicMin(&s_best[lane + 32], pack(b.bd, b.bi));
+    __syncthreads();
+    take(a, s_best[lane]);
+    take(b, s_best[lane + 32]);
+    __syncthreads();
+  }
+  // Then each warp walks its own share of the rest (k = k0 + warp, + kWarps,
+  // ...) without a barrier.  Before a chunk it takes the block's merged
+  // bests (an atomic 64-bit read), after it merges its own with atomicMin.
+  // A best read before another warp's merge is only larger, so every skip
+  // and stop it decides stays safe.
+  for (int k = k0 + warp; k < nch; k += kWarps) {
+    const unsigned long long key = s_key[k];
+    const float lb = __uint_as_float(static_cast<unsigned int>(key >> 32));
+    const int c = static_cast<int>(key & 0xffffffffull);
+    take(a, atomicOr(&s_best[lane], 0ull));
+    take(b, atomicOr(&s_best[lane + 32], 0ull));
+    const float worst = warp_max(fmaxf(a.live ? a.bd : 0.f,
+                                       b.live ? b.bd : 0.f));
+    if (lb > worst) break;  // every later chunk is at least as far
+    const float4 lo = cbox[2 * c];
+    const float4 hi = cbox[2 * c + 1];
+    if (!__any_sync(kAll, needs(a, lo, hi) || needs(b, lo, hi))) continue;
+    const int n = ccount[c];
+    if (lane == 0) {  // (group, chunk) visits and references compared
+      atomicAdd(&counters[0], 1ull);
+      atomicAdd(&counters[1], static_cast<unsigned long long>(n));
+    }
+    // staged through the warp's own buffer: all loads in flight at once
+    const float4* cr = cref + static_cast<size_t>(c) * kChunk;
+    float4* wref = s_ref + warp * kChunk;
+    __syncwarp();  // the previous chunk has been read
+    for (int j = lane; j < n; j += 32) wref[j] = cr[j];
+    __syncwarp();
+    // four references at a time: eight independent distances, then one
+    // test of each query's nearest of the four against its best
+    bool ta = false, tb = false;
+    int j = 0;
+    for (; j + 4 <= n; j += 4) {
+      const float4 r0 = wref[j], r1 = wref[j + 1], r2 = wref[j + 2],
+                   r3 = wref[j + 3];  // one address for the warp: broadcasts
+      const float a0 = sqdist(a.x, a.y, a.z, r0);
+      const float a1 = sqdist(a.x, a.y, a.z, r1);
+      const float a2 = sqdist(a.x, a.y, a.z, r2);
+      const float a3 = sqdist(a.x, a.y, a.z, r3);
+      const float b0 = sqdist(b.x, b.y, b.z, r0);
+      const float b1 = sqdist(b.x, b.y, b.z, r1);
+      const float b2 = sqdist(b.x, b.y, b.z, r2);
+      const float b3 = sqdist(b.x, b.y, b.z, r3);
+      if (fminf(fminf(a0, a1), fminf(a2, a3)) <= a.bd) {
+        ta |= offer(a, a0, r0.w);
+        ta |= offer(a, a1, r1.w);
+        ta |= offer(a, a2, r2.w);
+        ta |= offer(a, a3, r3.w);
+      }
+      if (fminf(fminf(b0, b1), fminf(b2, b3)) <= b.bd) {
+        tb |= offer(b, b0, r0.w);
+        tb |= offer(b, b1, r1.w);
+        tb |= offer(b, b2, r2.w);
+        tb |= offer(b, b3, r3.w);
+      }
+    }
+    for (; j < n; ++j) {
+      ta |= offer(a, wref[j]);
+      tb |= offer(b, wref[j]);
+    }
+    if (ta) atomicMin(&s_best[lane], pack(a.bd, a.bi));
+    if (tb) atomicMin(&s_best[lane + 32], pack(b.bd, b.bi));
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned long long ma = s_best[lane], mb = s_best[lane + 32];
+    if (a.q >= 0) {
+      idx[a.q] = static_cast<int>(ma & 0xffffffffull);
+      sqd[a.q] = __uint_as_float(static_cast<unsigned int>(ma >> 32));
+    }
+    if (b.q >= 0) {
+      idx[b.q] = static_cast<int>(mb & 0xffffffffull);
+      sqd[b.q] = __uint_as_float(static_cast<unsigned int>(mb >> 32));
+    }
   }
 }
 
@@ -102,25 +446,40 @@ __global__ void nn1_finish(const unsigned long long* __restrict__ best, int Q,
 
 GS_EXPORT_ERROR_STRING
 
-// query (Q, 3), rT (3, Tp), bias (Tp,) float32; scratch (Q,) 64-bit;
-// idx (Q,) int32, sqd (Q,) float32.
-extern "C" int nn1_launch(const float* query, const float* rT,
-                          const float* bias, int Q, int Tp,
-                          unsigned long long* scratch, int* idx, float* sqd,
-                          void* stream_ptr) {
+// query (Q, 3), rT (3, Tp), bias (Tp,) float32; qorder (Q,) and rorder
+// (L,) int32 or null (rorder null: L = Tp); scratch of m * (128 * 16 + 36)
+// + 16 bytes, m = max(ceil(L / 128), 1), 16-byte aligned, laid out as
+// the packed references (m * 128 float4), the boxes (2m float4), two
+// 64-bit counters (visits, references compared) and the counts (m int);
+// idx (Q,) int32, sqd (Q,) float32.  L <= kMaxChunks * kChunk.
+extern "C" int nn1_launch(const float* query, const int* qorder, int Q,
+                          const float* rT, const float* bias, int Tp,
+                          const int* rorder, int L, void* scratch, int* idx,
+                          float* sqd, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (Q <= 0) return static_cast<int>(cudaGetLastError());
-  const int qblocks = (Q + kThreads - 1) / kThreads;
-  nn1_init<<<qblocks, kThreads, 0, stream>>>(scratch, Q);
-  if (Tp > 0) {
-    // split the references so that ~kTargetBlocks blocks are in flight
-    int nsplit = (kTargetBlocks + qblocks - 1) / qblocks;
-    nsplit = std::max(1, std::min(nsplit, (Tp + kTile - 1) / kTile));
-    const int chunk = ((Tp + nsplit - 1) / nsplit + kTile - 1) / kTile * kTile;
-    nsplit = (Tp + chunk - 1) / chunk;
-    nn1_kernel<<<dim3(qblocks, nsplit), kThreads, 0, stream>>>(
-        query, rT, bias, Q, Tp, chunk, scratch);
-  }
-  nn1_finish<<<qblocks, kThreads, 0, stream>>>(scratch, Q, idx, sqd);
+  if (rorder == nullptr) L = Tp;
+  const int nch = (L + kChunk - 1) / kChunk;
+  if (Q < 0 || Tp < 0 || L < Tp || nch > kMaxChunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int m = nch > 0 ? nch : 1;
+  float4* cref = static_cast<float4*>(scratch);
+  float4* cbox = cref + static_cast<size_t>(m) * kChunk;
+  auto* counters = reinterpret_cast<unsigned long long*>(cbox + 2 * m);
+  int* ccount = reinterpret_cast<int*>(counters + 2);
+  nn1_chunks<<<m, kChunk, 0, stream>>>(rT, bias, rorder, L, Tp, cref, cbox,
+                                       ccount, counters);
+  if (Q == 0) return static_cast<int>(cudaGetLastError());
+  int nsort = 1;
+  while (nsort < nch) nsort <<= 1;
+  const int smem =
+      kWarps * kChunk * static_cast<int>(sizeof(float4)) +
+      nsort * static_cast<int>(sizeof(unsigned long long));
+  cudaError_t err = cudaSuccess;
+  if (smem > 47 * 1024)  // with the static 512 B, above the 48 KB default
+    err = cudaFuncSetAttribute(
+        nn1_search, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nn1_search<<<(Q + kGroup - 1) / kGroup, kThreads, smem, stream>>>(
+      query, qorder, Q, cref, cbox, ccount, nch, nsort, idx, sqd, counters);
   return static_cast<int>(cudaGetLastError());
 }

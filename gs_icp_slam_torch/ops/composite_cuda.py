@@ -15,7 +15,11 @@ walks each pixel's run in reverse from there.
 `composite` is the differentiable entry point: a torch.autograd.Function
 whose forward is K1-fwd and whose backward is K1-bwd, giving the gradient
 of the (10, V+1) compacted attribute table from the gradient of output
-rows 0-2 (rgb), 3 (depth) and 4 (final transmittance).  `make_composite`
+rows 0-2 (rgb), 3 (depth) and 4 (final transmittance).  K1-bwd sums each
+(tile, rank) cell into a cell buffer indexed by pair row, then each
+splat's cells through its pair rows (`splat_rows`: from the binning, or
+`splat_pair_rows` for any pair table); `composite_bwd_cells_plain` and
+`gather_cells_plain` are that design in plain PyTorch.  `make_composite`
 and `make_composite_dyn` build the K4a/K4b entry points the same way.
 
 The plain versions share one rank-at-a-time loop over a run layout: the
@@ -39,8 +43,11 @@ COMPOSITE_FWD = CudaKernel("composite_fwd", "composite_fwd.cu",
                            [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
 COMPOSITE_BWD = CudaKernel("composite_bwd", "composite_bwd.cu",
                            "composite_bwd_launch",
-                           [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                            _P])
+                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                            _P, _P, _I, _P, _P, _P])
+# K1-bwd's block covers a BWD_SIDE x BWD_SIDE corner of a tile (the whole
+# tile when it is smaller): four blocks per 32-pixel tile
+BWD_SIDE = 16
 # K4a (dense) and K4b (dense with per-tile counts): one source, four entry
 # points, each with its own launch count
 COMPOSITE_DENSE_FWD = CudaKernel("composite_dense_fwd", "composite_dense.cu",
@@ -288,57 +295,127 @@ def composite_bwd_work(counts, starts, pair_slot, attr, out, n_contrib, g,
     return int(walked), int(blended)
 
 
+def splat_pair_rows(counts: torch.Tensor, starts: torch.Tensor,
+                    pair_slot: torch.Tensor, Vp: int) -> torch.Tensor:
+    """K1-bwd's splat -> pair-row map for any pair table: (M, Vp) int32,
+    column v listing the rows of the runs (rank < counts[t]) whose slot is
+    v in increasing row order, -1 padded; M is the largest count (1 at
+    least).  The rasterizer's binning builds the same map from its sort
+    (ops.rasterize.Binning.splat_rows); this one syncs with the host."""
+    dev = pair_slot.device
+    c = counts.long()
+    n = int(c.sum())
+    first = torch.repeat_interleave(starts.long() - (torch.cumsum(c, 0) - c),
+                                    c, output_size=n)
+    rows = first + torch.arange(n, device=dev)
+    slot = pair_slot[rows].long()
+    order = torch.sort(slot * max(pair_slot.shape[0], 1) + rows).indices
+    slot, rows = slot[order], rows[order]
+    pos = torch.arange(n, device=dev) - torch.searchsorted(slot, slot)
+    M = int(pos.max()) + 1 if n else 1
+    out = torch.full((M, Vp), -1, dtype=torch.int32, device=dev)
+    out[pos, slot] = rows.to(torch.int32)
+    return out
+
+
+def composite_bwd_cells_plain(counts, starts, pair_slot, attr, out,
+                              n_contrib, g, ntx: int, tile: int):
+    """Plain PyTorch K1-bwd, first stage: the (Np, 1, 10) cell buffer, row
+    starts[t] + rank holding the sums of tile t's pixels for that rank
+    (zero on rows outside the runs).  The kernel keeps one plane per tile
+    corner (its blocks); here one plane holds the whole tile."""
+    px, py, in_run, _, a = _runs(counts, starts, pair_slot, attr, ntx, tile)
+    cell, _, _ = _composite_bwd_loop(px, py, in_run, a, out, n_contrib, g)
+    buf = torch.zeros((pair_slot.shape[0], 1, 10), dtype=attr.dtype,
+                      device=attr.device)
+    rank = torch.arange(cell.shape[2], device=attr.device)
+    rows = starts[:, None].long() + rank[None]
+    buf[rows[in_run], 0] = cell.permute(1, 2, 0)[in_run]
+    return buf
+
+
+def gather_cells_plain(cell: torch.Tensor, splat_rows: torch.Tensor,
+                       R: int = 10) -> torch.Tensor:
+    """Plain PyTorch K1-bwd, second stage: (R, Vp), column v the sum of
+    cell (Np, nsub, 10) over its pair rows (splat_rows (M, Vp), -1
+    skipped) and planes; rows >= 10 zero."""
+    M, Vp = splat_rows.shape
+    r = splat_rows.long()
+    got = torch.where((r >= 0)[..., None, None], cell[r.clamp(min=0)], 0.0)
+    d = torch.zeros((R, Vp), dtype=cell.dtype, device=cell.device)
+    d[:10] = got.sum((0, 2)).T
+    return d
+
+
 def composite_bwd(counts: torch.Tensor, starts: torch.Tensor,
                   pair_slot: torch.Tensor, attr: torch.Tensor,
                   out: torch.Tensor, n_contrib: torch.Tensor,
-                  g: torch.Tensor, ntx: int, tile: int) -> torch.Tensor:
+                  g: torch.Tensor, ntx: int, tile: int,
+                  splat_rows: torch.Tensor | None = None) -> torch.Tensor:
     """Gradient of the compacted attribute table (kernel K1-bwd).
 
     counts, starts, pair_slot, attr, ntx, tile as for composite_fwd; out
     (T, 8, P) and n_contrib (T, P) are its outputs; g (T, 8, P) float32 is
-    the gradient of out (rows 0-4 read).  Returns (R, Vp) float32, rows
-    0-9 the gradient of attr's rows (rows >= 10 zero)."""
+    the gradient of out (rows 0-4 read); splat_rows (M, Vp) int32 is the
+    splat -> pair-row map (built with splat_pair_rows when None).
+    Returns (R, Vp) float32, rows 0-9 the gradient of attr's rows (rows
+    >= 10 zero).  Deterministic: no atomics."""
     _check_inputs(counts, starts, pair_slot, attr, tile)
     dev = attr.device
     T, P = counts.shape[0], tile * tile
+    R, Vp = attr.shape
     check_tensor("out", out, torch.float32, (T, 8, P), dev)
     check_tensor("n_contrib", n_contrib, torch.int32, (T, P), dev)
     check_tensor("g", g, torch.float32, (T, 8, P), dev)
+    if splat_rows is not None:
+        check_tensor("splat_rows", splat_rows, torch.int32, (None, Vp), dev)
     if not on_cuda(dev):
         return composite_bwd_plain(counts, starts, pair_slot, attr, out,
                                    n_contrib, g, ntx, tile)
-    d_attr = torch.zeros_like(attr)
+    if splat_rows is None:
+        splat_rows = splat_pair_rows(counts, starts, pair_slot, Vp)
+    side = min(tile, BWD_SIDE)
+    nsub = (-(-tile // side)) ** 2
+    cell = torch.empty((pair_slot.shape[0], nsub, 10), dtype=torch.float32,
+                       device=dev)
+    d_attr = torch.empty_like(attr)
     COMPOSITE_BWD(counts.data_ptr(), starts.data_ptr(), pair_slot.data_ptr(),
-                  attr.data_ptr(), T, attr.shape[1], ntx, tile,
-                  out.data_ptr(), n_contrib.data_ptr(), g.data_ptr(),
-                  d_attr.data_ptr(), stream_ptr(dev))
+                  attr.data_ptr(), T, R, Vp, ntx, tile, side, out.data_ptr(),
+                  n_contrib.data_ptr(), g.data_ptr(), splat_rows.data_ptr(),
+                  splat_rows.shape[0], cell.data_ptr(), d_attr.data_ptr(),
+                  stream_ptr(dev))
     return d_attr
 
 
 class _Composite(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, counts, starts, pair_slot, attr, ntx, tile):
+    def forward(ctx, counts, starts, pair_slot, attr, ntx, tile, splat_rows):
         out, n_contrib = composite_fwd(counts, starts, pair_slot, attr, ntx,
                                        tile)
         ctx.save_for_backward(counts, starts, pair_slot, attr, out,
                               n_contrib)
         ctx.geom = (ntx, tile)
+        ctx.splat_rows = splat_rows
         return out
 
     @staticmethod
     def backward(ctx, g):
         counts, starts, pair_slot, attr, out, n_contrib = ctx.saved_tensors
         d_attr = composite_bwd(counts, starts, pair_slot, attr, out,
-                               n_contrib, g.contiguous(), *ctx.geom)
-        return None, None, None, d_attr, None, None
+                               n_contrib, g.contiguous(), *ctx.geom,
+                               ctx.splat_rows)
+        return None, None, None, d_attr, None, None, None
 
 
 def composite(counts: torch.Tensor, starts: torch.Tensor,
               pair_slot: torch.Tensor, attr: torch.Tensor, ntx: int,
-              tile: int) -> torch.Tensor:
+              tile: int, splat_rows: torch.Tensor | None = None
+              ) -> torch.Tensor:
     """composite_fwd's (T, 8, P) output, differentiable with respect to
-    attr: the backward is K1-bwd (composite_bwd)."""
-    return _Composite.apply(counts, starts, pair_slot, attr, ntx, tile)
+    attr: the backward is K1-bwd (composite_bwd, given splat_rows, the
+    binning's splat -> pair-row map)."""
+    return _Composite.apply(counts, starts, pair_slot, attr, ntx, tile,
+                            splat_rows)
 
 
 # ------------------------------------------------------------- K4a / K4b --

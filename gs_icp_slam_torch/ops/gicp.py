@@ -3,7 +3,10 @@ gs_icp_slam_tpu/ops/gicp.py).
 
   * correspondences: kernel K2 (ops.nn_cuda.nn_search_pre) recomputed every
     Gauss-Newton iteration, gated at max_correspondence_distance^2 on the
-    squared distance (fast_gicp's kd-tree + threshold gate);
+    squared distance (fast_gicp's kd-tree + threshold gate); the target
+    carries a spatial order of its slots (Morton, made once where it is
+    built) and the source one of its points (8x8 pixel blocks of the
+    grid), which keep K2's chunk bounds tight;
   * the step: Mahalanobis point-to-distribution Gauss-Newton over se(3)
     with left perturbation, as a Python loop with a per-iteration
     convergence check on the fast_gicp epsilons (one host sync per
@@ -37,12 +40,15 @@ class GICPTarget(NamedTuple):
     """Fixed-capacity target (map) cloud with registration covariances:
     points (3, T); cov6 (6, T) plane-regularized rows [m00, m01, m02, m11,
     m12, m22]; valid (T,); nn_bias (1, T), 0 on valid slots and +3.4e38 on
-    invalid ones (kernel K2's reference layout)."""
+    invalid ones (kernel K2's reference layout); nn_order (T,) int32, the
+    slots in K2's reference order (spatial_order), or None for slot
+    order.  The slots themselves stay in place: K2 reports slot indices."""
 
     points: torch.Tensor
     cov6: torch.Tensor
     valid: torch.Tensor
     nn_bias: torch.Tensor
+    nn_order: torch.Tensor | None = None
 
     @property
     def capacity(self) -> int:
@@ -57,6 +63,7 @@ class GICPSource(NamedTuple):
     quat: torch.Tensor  # (S, 4) xyzw of the raw covariance eigenbasis
     scales: torch.Tensor  # (S, 3) sqrt raw eigenvalues
     valid: torch.Tensor  # (S,) bool
+    nn_order: torch.Tensor | None = None  # (S,) int32 K2's query order
 
 
 def _identity_cov6(n: int, device) -> torch.Tensor:
@@ -81,6 +88,56 @@ def _cov_mat_to6(cov: torch.Tensor) -> torch.Tensor:
                         cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2]], dim=0)
 
 
+def _spread3(x: torch.Tensor) -> torch.Tensor:
+    """The low 10 bits of x (int64) moved to bits 0, 3, 6, ..., 27."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def spatial_order(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """K2's reference order of a (3, T) cloud: the valid slots in Morton
+    (Z-curve) order on a 1024^3 grid over their bounding box, so that a
+    run of slots is a compact piece of space, then the invalid slots in
+    increasing order.  (T,) int32, a permutation of [0, T); one sort, no
+    host sync."""
+    T = points.shape[1]
+    inf = float("inf")  # a Python scalar: no upload, no host sync
+    lo = torch.where(valid[None], points, inf).amin(1, keepdim=True)
+    hi = torch.where(valid[None], points, -inf).amax(1, keepdim=True)
+    span = torch.clamp(hi - lo, min=1e-12)
+    cell = torch.nan_to_num(((points - lo) / span * 1023.0).clamp(0, 1023))
+    cell = cell.to(torch.int64)
+    code = (_spread3(cell[0]) | (_spread3(cell[1]) << 1)
+            | (_spread3(cell[2]) << 2))
+    key = torch.where(valid, code, 1 << 30) * T + torch.arange(
+        T, device=points.device)
+    return torch.sort(key).indices.to(torch.int32)
+
+
+_GRID_ORDERS: dict = {}
+_BLOCK = 8  # 8 x 8 pixels: one K2 query group of 64
+
+
+def grid_block_order(gh: int, gw: int, device) -> torch.Tensor:
+    """K2's query order of a row-major (gh, gw) pixel-grid cloud: blocks
+    of 8 x 8 pixels, row-major, and the pixels of each block row-major,
+    so that K2's groups of 64 queries are compact patches of the image
+    rather than strips of a row.  (gh*gw,) int32, made once per grid and
+    device."""
+    key = (gh, gw, str(device))
+    if key not in _GRID_ORDERS:
+        p = torch.arange(gh * gw, device=device)
+        r, c = p // gw, p % gw
+        nbx = -(-gw // _BLOCK)
+        k = (((r // _BLOCK) * nbx + c // _BLOCK) * _BLOCK * _BLOCK
+             + (r % _BLOCK) * _BLOCK + c % _BLOCK)
+        _GRID_ORDERS[key] = torch.argsort(k).to(torch.int32)
+    return _GRID_ORDERS[key]
+
+
 def _build_target(points_nc: torch.Tensor, cov6: torch.Tensor,
                   valid: torch.Tensor, capacity: int | None) -> GICPTarget:
     """points_nc (P, 3), cov6 (6, P), valid (P,) -> GICPTarget of
@@ -97,17 +154,20 @@ def _build_target(points_nc: torch.Tensor, cov6: torch.Tensor,
     v = torch.zeros(tc, dtype=torch.bool, device=dev)
     v[:p] = valid
     bias = torch.where(v, 0.0, _BIG).to(torch.float32)[None].contiguous()
-    return GICPTarget(points=pts, cov6=c6, valid=v, nn_bias=bias)
+    return GICPTarget(points=pts, cov6=c6, valid=v, nn_bias=bias,
+                      nn_order=spatial_order(pts, v))
 
 
 def make_source(points: torch.Tensor, valid: torch.Tensor, cfg: GICPConfig,
                 trackable: torch.Tensor | None = None,
-                grid: tuple[int, int] | None = None) -> GICPSource:
+                grid: tuple[int, int] | None = None,
+                query_grid: tuple[int, int] | None = None) -> GICPSource:
     """Source covariances (mp_Tracker.py:191-195).  Covariances are
     estimated among `valid` points (all become Gaussians), while
     `trackable` gates registration.  `grid` = (gh, gw) of the downsampled
     frame; with cfg.source_knn == "grid" the neighbour search is the
-    image-window one, else the exact k-NN (kernel K3)."""
+    image-window one, else the exact k-NN (kernel K3).  The points' grid
+    (`query_grid`, else `grid`) orders K2's queries (grid_block_order)."""
     if trackable is None:
         trackable = valid
     if grid is not None and cfg.source_knn == "grid":
@@ -120,8 +180,11 @@ def make_source(points: torch.Tensor, valid: torch.Tensor, cfg: GICPConfig,
                                    max_dist=cfg.knn_max_distance)
     quat, scales = cov_to_quat_scale(cov_raw)
     cov_reg = regularize_plane(cov_raw, cfg.plane_eps)
+    qg = query_grid or grid
     return GICPSource(points=points, cov6=_cov_mat_to6(cov_reg), quat=quat,
-                      scales=scales, valid=trackable)
+                      scales=scales, valid=trackable,
+                      nn_order=None if qg is None else grid_block_order(
+                          *qg, points.device))
 
 
 def target_from_points(points: torch.Tensor, valid: torch.Tensor,
@@ -222,7 +285,8 @@ def _gn_step(T: torch.Tensor, source: GICPSource, target: GICPTarget,
     """One Gauss-Newton linearization and update: (T_new, delta, idx, sqd)."""
     R = T[:3, :3]
     p = source.points @ R.T + T[:3, 3]
-    idx, sqd = nn_search_pre(p.contiguous(), target.points, target.nn_bias)
+    idx, sqd = nn_search_pre(p.contiguous(), target.points, target.nn_bias,
+                             target.nn_order, source.nn_order)
     w = (source.valid & (sqd < cfg.max_correspondence_distance ** 2)
          ).to(torch.float32)
 
@@ -331,10 +395,13 @@ def gicp_align(source: GICPSource, target: GICPTarget,
 
 
 def source_correspondences(T: torch.Tensor, source_points: torch.Tensor,
-                           target: GICPTarget):
+                           target: GICPTarget,
+                           query_order: torch.Tensor | None = None):
     """Squared NN distance of each transformed source point in the target
     (the fork's get_source_correspondence, mp_Tracker.py:231), which feeds
-    the keyframe overlap ratio and the overlap dedup.  Kernel K2."""
+    the keyframe overlap ratio and the overlap dedup.  Kernel K2;
+    query_order is the source's nn_order."""
     p = source_points @ T[:3, :3].T + T[:3, 3]
-    return nn_search_pre(p.contiguous(), target.points, target.nn_bias)
+    return nn_search_pre(p.contiguous(), target.points, target.nn_bias,
+                         target.nn_order, query_order)
 

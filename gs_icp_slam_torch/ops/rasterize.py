@@ -8,7 +8,8 @@ Stages, in order:
   3. the (D*D, V) tile pairs of each splat's clamped tile rect;
   4. one sort of the (tile << S) | slot keys: slots are depth ranks, so
      each tile's run comes out front to back; run starts by searchsorted,
-     counts clamped to the front-most K;
+     counts clamped to the front-most K; the sort's indices give each
+     splat's pair rows (K1-bwd's splat -> pair-row map);
   5. the compositor, kernels K1-fwd / K1-bwd (ops.composite_cuda);
   6. the background blend through the final transmittance and the
      channel-first untiling;
@@ -21,8 +22,9 @@ The sort and binning handle only integer keys, so the splat order is a
 constant of the backward, as in the CUDA rasterizer.
 
 Left behind from the JAX version (TPU mechanics): the power-of-two payload
-windows and their padding, the _compact_cols custom VJP, the cell_idx
-inverse map and the 16-row payload.
+windows and their padding, the _compact_cols custom VJP and the 16-row
+payload.  The cell_idx inverse map survives as Binning.splat_rows, read
+by K1-bwd's per-splat sum.
 """
 from __future__ import annotations
 
@@ -52,6 +54,8 @@ class Binning(NamedTuple):
     attr_v: torch.Tensor     # (10, V+1) compacted attrs, last column zero
     radii: torch.Tensor      # (N,) int32
     stats: torch.Tensor      # (3,) int64
+    splat_rows: torch.Tensor  # (D*D, V+1) int32 pair rows of each compacted
+                              # splat inside the runs, -1 elsewhere
 
 
 def tile_capacity(width: int, height: int, tile: int, tile_span: int,
@@ -106,7 +110,7 @@ def bin_splats(xyz, quat, scale, opacity, sh, w2c, live, fx, fy, cx, cy, *,
     S = max(V - 1, 1).bit_length()
     sentinel = T << S  # sorts after every tile's run
     keys = torch.where(pair_ok, (pair_tile << S) | vslot[None], sentinel)
-    key_s = torch.sort(keys.reshape(-1)).values
+    key_s, perm = torch.sort(keys.reshape(-1))
     bounds = torch.arange(T + 1, device=dev, dtype=torch.int64) << S
     start = torch.searchsorted(key_s, bounds)
     run = start[1:] - start[:-1]
@@ -114,10 +118,22 @@ def bin_splats(xyz, quat, scale, opacity, sh, w2c, live, fx, fy, cx, cy, *,
     pair_dropped = (run - counts).sum()
     pair_slot = (key_s & ((1 << S) - 1)).to(torch.int32)
 
+    # ---- each splat's pair rows: the sorted position of each of its D*D
+    # keys, kept where it lies in its tile's run (rank < counts) ----------
+    row = torch.empty_like(perm)
+    row[perm] = torch.arange(perm.shape[0], device=dev)
+    row = row.reshape(D * D, V)
+    tc = torch.clamp(pair_tile, 0, T - 1)
+    in_run = pair_ok & (row - start[tc] < counts[tc])
+    splat_rows = torch.full((D * D, V + 1), -1, dtype=torch.int32,
+                            device=dev)
+    splat_rows[:, :V] = torch.where(in_run, row, -1)
+
     stats = torch.stack([vcount, torch.clamp(vcount - V, min=0), pair_dropped])
     return Binning(counts=counts.to(torch.int32),
                    starts=start[:-1].to(torch.int32), pair_slot=pair_slot,
-                   attr_v=attr_v.contiguous(), radii=radius_i, stats=stats)
+                   attr_v=attr_v.contiguous(), radii=radius_i, stats=stats,
+                   splat_rows=splat_rows)
 
 
 def _untile(x: torch.Tensor, nty: int, ntx: int, tile: int, height: int,
@@ -143,8 +159,8 @@ def rasterize_tiled(xyz, quat, scale, opacity, sh, w2c, live, bg,
                    sh_degree=sh_degree, width=width, height=height,
                    tile=tile, visible_cap=visible_cap, tile_span=tile_span,
                    tile_cap=tile_cap)
-    out8 = composite(b.counts, b.starts, b.pair_slot, b.attr_v, ntx,
-                     tile)                                       # (T, 8, P)
+    out8 = composite(b.counts, b.starts, b.pair_slot, b.attr_v, ntx, tile,
+                     b.splat_rows)                               # (T, 8, P)
     tfin = out8[:, 4]
     color_px = out8[:, 0:3] + tfin[:, None, :] * bg.to(out8)[None, :, None]
     color = _untile(color_px, nty, ntx, tile, height, width)

@@ -193,7 +193,8 @@ class SLAMEngine:
             self._mapping_iterations(cfg.engine.mapping_iters_per_frame)
             return
 
-        source = make_source(points, valid, cfg.gicp, trackable=trackable)
+        source = make_source(points, valid, cfg.gicp, trackable=trackable,
+                             query_grid=(self.filt.gh, self.filt.gw))
         prev = np.asarray(self.poses[-1], np.float64)
         model = cfg.gicp.motion_model
         init_np, init2_np = prev, None
@@ -213,7 +214,8 @@ class SLAMEngine:
                                 init_T2=init_T2)
 
         pts_w = transform_points(T, source.points)
-        _, sqd = source_correspondences(T, source.points, self.target)
+        _, sqd = source_correspondences(T, source.points, self.target,
+                                        source.nn_order)
         n_track = source.valid.sum()
         overlap = (source.valid & (sqd < cfg.kf.overlapped_th)).sum()
         ratio = overlap / torch.clamp(n_track, min=1)

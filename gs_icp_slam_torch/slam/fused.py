@@ -235,9 +235,11 @@ def _slice_target(t: GICPTarget, tb) -> GICPTarget:
     if tb is None or tb >= t.capacity:
         return t
     # the 1-NN kernel takes contiguous rows: one small copy per frame
+    # (K2 skips the order's entries past the slice)
     return GICPTarget(points=t.points[:, :tb].contiguous(),
                       cov6=t.cov6[:, :tb].contiguous(), valid=t.valid[:tb],
-                      nn_bias=t.nn_bias[:, :tb].contiguous())
+                      nn_bias=t.nn_bias[:, :tb].contiguous(),
+                      nn_order=t.nn_order)
 
 
 def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,

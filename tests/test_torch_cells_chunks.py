@@ -1,0 +1,228 @@
+"""PyTorch port: the plain versions of the K1-bwd and K2 designs, on the
+CPU at small sizes.
+
+K1-bwd sums each (tile, rank) cell into a cell buffer indexed by pair row,
+then each splat's cells through the binning's splat -> pair-row map.  Here
+the map that bin_splats builds from its sort, and the plain cell-buffer
+reduction on it, are held against composite_bwd_plain (index_add_ into the
+splat's column): each attribute row within 1e-6 of its largest |gradient|
+(the same sums, added in another order).
+
+K2 searches reference chunks nearest first and skips a chunk when a box
+bound rules it out.  The bound's mirror (chunk_lower_bound) must never
+exceed the rounded distance of any pair it covers, and the plain model of
+the whole search (nn1_chunked_plain) must equal nn1_plain exactly, indices
+and distances, on planted cases: ties across chunks, queries on box
+faces, coordinates of 1e3 m, chunks with no valid reference.
+"""
+import numpy as np
+import pytest
+import torch
+
+from gs_icp_slam_torch.ops import composite_cuda as cc
+from gs_icp_slam_torch.ops import nn_cuda
+from gs_icp_slam_torch.ops.gicp import grid_block_order, spatial_order
+from gs_icp_slam_torch.ops.rasterize import bin_splats
+
+_BIG = np.float32(3.4e38)
+CH = nn_cuda.NN_CHUNK
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensors: intra-op threads only contend with the other test
+    workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ------------------------------------------------------------ K1-bwd ----
+
+def _binning(tile, tile_span, tile_cap, n=300, seed=3):
+    rng = np.random.default_rng(seed)
+    xyz = np.stack([rng.uniform(-0.9, 0.9, n), rng.uniform(-0.6, 0.6, n),
+                    rng.uniform(1.2, 3.0, n)], 1).astype(np.float32)
+    quat = rng.normal(size=(n, 4)).astype(np.float32)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    scale = rng.uniform(0.02, 0.08, (n, 3)).astype(np.float32)
+    opacity = rng.uniform(0.3, 0.95, n).astype(np.float32)
+    sh = rng.uniform(-0.4, 0.4, (n, 1, 3)).astype(np.float32)
+    t = [torch.as_tensor(a) for a in (xyz, quat, scale, opacity, sh)]
+    return bin_splats(*t, torch.eye(4), torch.ones(n, dtype=torch.bool),
+                      60.0, 60.0, 63.5, 47.5, sh_degree=0, width=128,
+                      height=96, tile=tile, visible_cap=512,
+                      tile_span=tile_span, tile_cap=tile_cap)
+
+
+@pytest.mark.parametrize("tile,tile_span,tile_cap", [(16, 3, 64),
+                                                      (32, 2, 256)])
+def test_splat_rows_and_cell_reduction_equal_plain_bwd(tile, tile_span,
+                                                       tile_cap):
+    b = _binning(tile, tile_span, tile_cap)
+    ntx = -(-128 // tile)
+    Vp = b.attr_v.shape[1]
+    rows = b.splat_rows
+    assert rows.shape == (tile_span ** 2, Vp) and rows.dtype == torch.int32
+    # every row of every run appears once, and only those
+    c, s = b.counts.long(), b.starts.long()
+    want = torch.cat([torch.arange(int(s[t]), int(s[t] + c[t]))
+                      for t in range(c.shape[0])])
+    got = rows[rows >= 0].long()
+    assert torch.equal(torch.sort(got).values, want)
+    # ... in the column of the row's splat
+    col = torch.arange(Vp).expand_as(rows)[rows >= 0]
+    assert torch.equal(b.pair_slot[got].long(), col)
+    # splat_pair_rows, for any pair table, finds the same rows
+    gen = cc.splat_pair_rows(b.counts, b.starts, b.pair_slot, Vp)
+    assert torch.equal(torch.sort(gen[gen >= 0].long()).values, want)
+    if tile_cap == 64:  # the tile cap dropped pairs: their rows are -1
+        assert int(b.stats[2]) > 0
+
+    args = (b.counts, b.starts, b.pair_slot, b.attr_v)
+    out, n_contrib = cc.composite_fwd(*args, ntx, tile)
+    g = torch.as_tensor(np.random.default_rng(1).normal(
+        size=out.shape).astype(np.float32))
+    g[:, 5:] = 0.0
+    ref = cc.composite_bwd_plain(*args, out, n_contrib, g, ntx, tile)
+    cell = cc.composite_bwd_cells_plain(*args, out, n_contrib, g, ntx, tile)
+    got = cc.gather_cells_plain(cell, rows, ref.shape[0])
+    scale = ref[:10].abs().amax(1, keepdim=True)
+    assert (scale > 0).all()
+    assert float(((got - ref)[:10].abs() / scale).max()) <= 1e-6
+    assert (got[:, -1] == 0).all()  # the zero column has no pairs
+
+
+# ---------------------------------------------------------------- K2 ----
+
+def _chunk_cases():
+    """(name, query (Q, 3), refs (R, 3), valid (R,), ref_order or None)
+    float32 numpy; R spans several chunks of NN_CHUNK references."""
+    rng = np.random.default_rng(0)
+    cases = []
+    # duplicates at equal distance in different chunks, listed so that
+    # the higher index comes first; and mirror-image pairs about queries
+    R = 1200
+    refs = rng.normal(size=(R, 3)).astype(np.float32)
+    valid = rng.random(R) > 0.2
+    refs[900] = refs[40]
+    refs[1100] = refs[300]
+    valid[[40, 900, 300, 1100]] = True
+    q = rng.normal(size=(130, 3)).astype(np.float32)
+    q[:2] = refs[[40, 300]]  # distance 0, twice
+    q[2] = 0.0
+    refs[700], refs[20] = (0.01, 0.0, 0.0), (-0.01, 0.0, 0.0)
+    valid[[700, 20]] = True
+    # highest index first, and entries past the references (skipped)
+    order = np.arange(R + 6)[::-1].astype(np.int32)
+    cases.append(("ties_across_chunks", q, refs, valid, order))
+    # queries on the faces and corners of the chunks' boxes
+    refs = rng.uniform(0, 1, (3 * CH, 3)).astype(np.float32)
+    valid = np.ones(3 * CH, bool)
+    lo = refs.reshape(3, CH, 3).min(1)
+    hi = refs.reshape(3, CH, 3).max(1)
+    q = np.concatenate([lo, hi, np.stack([lo[:, 0], hi[:, 1], lo[:, 2]], 1),
+                        rng.uniform(-0.5, 1.5, (70, 3))]).astype(np.float32)
+    cases.append(("box_faces", q, refs, valid, None))
+    # a metre-spaced surface 1e3 m out, queries a few cm off it, in
+    # Morton order
+    g = np.stack(np.meshgrid(np.arange(40), np.arange(20)), -1).reshape(-1, 2)
+    refs = np.concatenate([1000.0 + 0.05 * g, np.full((800, 1), 1000.0)],
+                          1).astype(np.float32)
+    valid = rng.random(800) > 0.1
+    q = (refs[:200] + rng.normal(0, 0.02, (200, 3))).astype(np.float32)
+    cases.append(("far_1e3", q, refs, valid, "spatial"))
+    # whole chunks with no valid reference, and an order longer than the
+    # references (a sliced target)
+    refs = rng.normal(size=(1000, 3)).astype(np.float32)
+    valid = np.zeros(1000, bool)
+    valid[300:420] = True
+    valid[900:] = True
+    order = rng.permutation(1100).astype(np.int32)
+    cases.append(("invalid_chunks", q[:77], refs, valid, order))
+    cases.append(("no_valid_ref", q[:70], refs, np.zeros(1000, bool),
+                  None))
+    return cases
+
+
+CASES = {c[0]: c[1:] for c in _chunk_cases()}
+
+
+def _tensors(name):
+    q, refs, valid, order = CASES[name]
+    rT = torch.as_tensor(refs.T.copy())
+    v = torch.as_tensor(valid)
+    bias = torch.where(v, 0.0, float(_BIG)).to(torch.float32)[None]
+    if isinstance(order, str):
+        order = spatial_order(rT, v)
+    elif order is not None:
+        order = torch.as_tensor(order)
+    return torch.as_tensor(q), rT, bias, order
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_chunk_lower_bound_never_exceeds_a_pair(name):
+    q, rT, bias, order = _tensors(name)
+    R = rT.shape[1]
+    L = R if order is None else order.shape[0]
+    pos = torch.arange(-(-L // CH) * CH)
+    slot = pos if order is None else torch.cat(
+        [order.long(), torch.full((pos.shape[0] - order.shape[0],), -1)])
+    slot = torch.where((slot >= 0) & (slot < R), slot, -1)
+    for c in range(pos.shape[0] // CH):
+        s = slot[c * CH:(c + 1) * CH]
+        s = s[s >= 0]
+        s = s[bias[0, s] == 0]
+        if s.numel() == 0:
+            continue
+        r = rT[:, s].T
+        lo, hi = r.amin(0), r.amax(0)
+        d = ((q[:, None, 0] - r[None, :, 0]) ** 2
+             + (q[:, None, 1] - r[None, :, 1]) ** 2) + (
+                 q[:, None, 2] - r[None, :, 2]) ** 2
+        own = nn_cuda.chunk_lower_bound(q, q, lo, hi)
+        assert (own <= d.amin(1)).all(), (name, c)
+        for sel in (slice(0, 64), slice(None)):  # a group's box
+            qq = q[sel]
+            box = nn_cuda.chunk_lower_bound(qq.amin(0), qq.amax(0), lo, hi)
+            assert float(box) <= float(d[sel].min()), (name, c)
+            assert float(box) <= float(own[sel].min())
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_chunked_search_equals_plain(name):
+    q, rT, bias, order = _tensors(name)
+    want_i, want_d = nn_cuda.nn1_plain(q, rT, bias)
+    qorder = torch.as_tensor(np.random.default_rng(2).permutation(
+        q.shape[0]).astype(np.int32))
+    stats = []
+    for ro, qo in ((order, None), (None, qorder), (order, qorder)):
+        i, d, st = nn_cuda.nn1_chunked_plain(q, rT, bias, ro, qo)
+        assert torch.equal(i, want_i) and torch.equal(d, want_d), name
+        stats.append(st)
+    if name == "ties_across_chunks":
+        assert want_i[0] == 40 and want_i[1] == 300
+        assert want_i[2] == 20
+        assert want_d[2] == np.float32(0.01) * np.float32(0.01)
+    if name == "far_1e3":  # a surface in Morton order culls
+        assert stats[0]["culled"] > 0.3
+    if name == "no_valid_ref":
+        assert (want_i == 0).all() and (want_d == _BIG).all()
+        assert stats[0]["chunks"] == 0 and stats[0]["visits"] == 0
+
+
+def test_orders_are_permutations():
+    o = grid_block_order(11, 20, "cpu")
+    assert torch.equal(torch.sort(o.long()).values, torch.arange(220))
+    # the first group of 64 is the top-left 8x8 pixel block
+    r, c = o[:64] // 20, o[:64] % 20
+    assert int(r.max()) == 7 and int(c.max()) == 7
+    rng = np.random.default_rng(4)
+    pts = torch.as_tensor(rng.normal(size=(3, 500)).astype(np.float32))
+    v = torch.as_tensor(rng.random(500) > 0.3)
+    s = spatial_order(pts, v).long()
+    assert torch.equal(torch.sort(s).values, torch.arange(500))
+    nv = int(v.sum())
+    assert v[s[:nv]].all() and torch.equal(
+        s[nv:], torch.nonzero(~v).squeeze(1))

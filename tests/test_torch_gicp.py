@@ -185,6 +185,11 @@ def test_target_from_gaussians_and_empty(case):
     np.testing.assert_allclose(tt.cov6.numpy(), np.asarray(jt.cov6),
                                rtol=1e-5, atol=1e-6)
     je, te = jg.empty_target(TCAP), tg.empty_target(TCAP, device="cpu")
-    for f in te._fields:
+    for f in je._fields:  # the port's target adds nn_order, K2's order
         np.testing.assert_array_equal(getattr(te, f).numpy(),
                                       np.asarray(getattr(je, f)))
+    assert te.nn_order is None
+    # a built target's order: a permutation, valid slots first
+    o = tt.nn_order.long()
+    assert torch.equal(torch.sort(o).values, torch.arange(TCAP))
+    assert tt.valid[o[:int(v.sum())]].all()

@@ -10,17 +10,19 @@ distance as PyTorch does, and keep the lowest-index tie rule); K1-fwd
 atol 1e-5 and n_contrib exact (the same operation order; exp may differ
 by an ulp); K1-bwd each attribute row within 1e-4 of the row's largest
 |gradient| (the same per-pair arithmetic, but the pixel sums are taken
-by warp shuffles and atomics in an order that changes from run to run);
-K4a/K4b forward atol 1e-5 with n_contrib exact, backward each row within
-1e-4 of the row's largest |gradient| (no atomics: the kernel's warp sums
-are added in a fixed order, so two runs give the same bits).
+by warp shuffles, per-warp partials and per-splat cell sums in another
+order), and equal bits on two runs (no atomics); K4a/K4b forward atol
+1e-5 with n_contrib exact, backward each row within 1e-4 of the row's
+largest |gradient| (no atomics: the kernel's warp sums are added in a
+fixed order, so two runs give the same bits).
 """
 import numpy as np
 import pytest
 import torch
 
 from gs_icp_slam_torch.ops import composite_cuda, nn_cuda
-from gs_icp_slam_torch.ops.rasterize import rasterize_tiled
+from gs_icp_slam_torch.ops.gicp import grid_block_order, spatial_order
+from gs_icp_slam_torch.ops.rasterize import bin_splats, rasterize_tiled
 
 pytestmark = pytest.mark.gpu
 
@@ -53,6 +55,63 @@ def test_nn1_kernel_no_valid_ref(dev):
     rT = torch.zeros((3, 64), device=dev)
     bias = torch.full((1, 64), 3.4e38, device=dev)
     i1, d1 = nn_cuda.nn_search_pre(q, rT, bias)
+    assert (i1 == 0).all() and (d1 == np.float32(3.4e38)).all()
+
+
+def _surface(gh, gw, seed):
+    """A pixel-grid cloud of a wavy surface (row-major, like the
+    downsampled frame) and a target of two shifted copies of it with ~20%
+    invalid slots."""
+    rng = np.random.default_rng(seed)
+    u, v = np.meshgrid(np.linspace(-1.5, 1.5, gw), np.linspace(-1, 1, gh))
+    z = 2.0 + 0.2 * np.sin(2 * u) * np.cos(3 * v)
+    src = np.stack([u * z / 2, v * z / 2, z], -1).reshape(-1, 3)
+    tgt = np.concatenate([src + 0.004, src - 0.003]).astype(np.float32)
+    valid = rng.random(tgt.shape[0]) > 0.2
+    return src.astype(np.float32), tgt, valid
+
+
+@pytest.mark.parametrize("gh,gw", [(69, 120), (13, 37)])
+def test_nn1_kernel_on_an_ordered_surface(dev, gh, gw):
+    """The G-ICP call: target in Morton order, queries in 8x8 pixel
+    blocks; ties planted across chunks (a slot duplicated far away in the
+    order); Q = gh * gw not a multiple of the 64-query group."""
+    src, tgt, valid = _surface(gh, gw, gh)
+    n = tgt.shape[0]
+    tgt[n - 1] = tgt[5]
+    tgt[n // 2 + 3] = tgt[5]
+    valid[[5, n // 2 + 3, n - 1]] = True
+    src[7] = tgt[5]  # distance 0 to three slots: the lowest wins
+    rT = torch.as_tensor(tgt.T.copy()).to(dev)
+    v = torch.as_tensor(valid).to(dev)
+    bias = torch.where(v, 0.0, 3.4e38).float()[None].contiguous()
+    q = torch.as_tensor(src).to(dev)
+    ro, qo = spatial_order(rT, v), grid_block_order(gh, gw, dev)
+    i0, d0 = nn_cuda.nn1_plain(q, rT, bias)
+    for args in ((ro, qo), (ro, None), (None, qo), (None, None)):
+        i1, d1 = nn_cuda.nn_search_pre(q, rT, bias, *args)
+        assert torch.equal(i1, i0) and torch.equal(d1, d0)
+    assert int(i0[7]) == 5 and float(d0[7]) == 0.0
+    # a sliced target: the full order, references past the slice skipped
+    Tp = n // 2 + 10
+    i1, d1 = nn_cuda.nn_search_pre(q, rT[:, :Tp].contiguous(),
+                                   bias[:, :Tp].contiguous(), ro, qo)
+    i0, d0 = nn_cuda.nn1_plain(q, rT[:, :Tp].contiguous(),
+                               bias[:, :Tp].contiguous())
+    assert torch.equal(i1, i0) and torch.equal(d1, d0)
+    _, _, st = nn_cuda.nn1_chunked_plain(q, rT, bias, ro, qo)
+    if gh == 69:  # the tracking geometry culls most chunks
+        assert st["culled"] > 0.5
+
+
+def test_nn1_kernel_no_valid_ref_ordered(dev):
+    src, tgt, _ = _surface(13, 37, 1)
+    rT = torch.as_tensor(tgt.T.copy()).to(dev)
+    v = torch.zeros(tgt.shape[0], dtype=torch.bool, device=dev)
+    bias = torch.full((1, tgt.shape[0]), 3.4e38, device=dev)
+    i1, d1 = nn_cuda.nn_search_pre(torch.as_tensor(src).to(dev), rT, bias,
+                                   spatial_order(rT, v),
+                                   grid_block_order(13, 37, dev))
     assert (i1 == 0).all() and (d1 == np.float32(3.4e38)).all()
 
 
@@ -132,8 +191,10 @@ def test_composite_bwd_kernel_matches_plain(dev, case):
     g[:, 5:] = 0.0
     g = g.to(dev)
     got = composite_cuda.composite_bwd(*args, out, nc, g, ntx, tile)
+    again = composite_cuda.composite_bwd(*args, out, nc, g, ntx, tile)
     ref = composite_cuda.composite_bwd_plain(*args, out, nc, g, ntx, tile)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)  # deterministic
     scale = ref.abs().amax(1, keepdim=True).clamp(min=1e-30)
     assert float(((got - ref).abs() / scale).max()) <= 1e-4
     assert float(ref.abs().max()) > 0
@@ -142,6 +203,61 @@ def test_composite_bwd_kernel_matches_plain(dev, case):
     if case == "all_stop_early":  # every pixel stopped before its run ended
         assert (out[:, 4] < 1e-2).all()
         assert (nc < torch.as_tensor(counts, device=dev)[:, None]).all()
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("case", ["K128", "K128_saturated", "K4096"])
+def test_composite_bwd_kernel_deterministic(dev, tile, case):
+    """K1-bwd at both tile sizes (one block per 16x16 corner): equal bits
+    on two launches, within 1e-4 of the plain version row by row."""
+    kw = dict(saturated=case == "K128_saturated", tile=tile)
+    if case == "K4096":
+        kw.update(K=4096, V=2048)
+    counts, starts, pair_slot, attr, ntx, tile = _composite_inputs(**kw)
+    args = [torch.as_tensor(a).to(dev) for a in (counts, starts, pair_slot,
+                                                 attr)]
+    out, nc = composite_cuda.composite_fwd(*args, ntx, tile)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(2))
+    g[:, 5:] = 0.0
+    g = g.to(dev)
+    rows = composite_cuda.splat_pair_rows(*args[:3], attr.shape[1])
+    runs = [composite_cuda.composite_bwd(*args, out, nc, g, ntx, tile, rows)
+            for _ in range(2)]
+    ref = composite_cuda.composite_bwd_plain(*args, out, nc, g, ntx, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    scale = ref.abs().amax(1, keepdim=True).clamp(min=1e-30)
+    assert float(((runs[0] - ref).abs() / scale).max()) <= 1e-4
+
+
+def test_composite_bwd_kernel_with_the_binning_map(dev):
+    """Through the rasterizer's binning: its splat -> pair-row map (tile
+    cap drops included) gives the plain version's gradient."""
+    rng = np.random.default_rng(9)
+    n = 400
+    xyz = np.stack([rng.uniform(-0.9, 0.9, n), rng.uniform(-0.6, 0.6, n),
+                    rng.uniform(1.2, 3.0, n)], 1).astype(np.float32)
+    quat = rng.normal(size=(n, 4)).astype(np.float32)
+    scale = rng.uniform(0.02, 0.08, (n, 3)).astype(np.float32)
+    opacity = rng.uniform(0.3, 0.95, n).astype(np.float32)
+    sh = rng.uniform(-0.4, 0.4, (n, 1, 3)).astype(np.float32)
+    t = [torch.as_tensor(a).to(dev) for a in (xyz, quat, scale, opacity, sh)]
+    b = bin_splats(*t, torch.eye(4, device=dev),
+                   torch.ones(n, dtype=torch.bool, device=dev), 60.0, 60.0,
+                   63.5, 47.5, sh_degree=0, width=128, height=96, tile=32,
+                   visible_cap=512, tile_span=2, tile_cap=64)
+    assert int(b.stats[2]) > 0  # some pairs past the tile cap
+    args = (b.counts, b.starts, b.pair_slot, b.attr_v.detach())
+    out, nc = composite_cuda.composite_fwd(*args, 4, 32)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(4))
+    g[:, 5:] = 0.0
+    g = g.to(dev)
+    got = composite_cuda.composite_bwd(*args, out, nc, g, 4, 32,
+                                       b.splat_rows)
+    ref = composite_cuda.composite_bwd_plain(*args, out, nc, g, 4, 32)
+    torch.cuda.synchronize()
+    scale = ref.abs().amax(1, keepdim=True).clamp(min=1e-30)
+    assert float(((got - ref).abs() / scale).max()) <= 1e-4
 
 
 def _dense_inputs(T, ntx, tile, K, seed=1):
