@@ -39,7 +39,15 @@
    arguments path C's last Gauss-Newton step handed it (the tracking
    target after the last tracking keyframe, the last frame's source moved
    by its pose), with the share of reference chunks its search culled;
-   K1-bwd must give equal bits on two launches;
+   K3 runs on the first frame's cloud (k = 20 and k = 4) and on a random
+   cube of as many points, 30% invalid, with the chunk visits and pairs
+   its search counted and bounds on two bases (the row's: the pairs a
+   one-chunk-at-a-time search compares; beside it, every pair); K1-fwd
+   must give its plain version's bits, with the pairs it evaluated and
+   culled (counted by the kernel, adding up to the pairs the plain
+   version examines) and bounds on two bases (the row's: the pairs that
+   blend or stop; beside it, every examined pair); K2, K3 and K1-fwd are
+   exact; K1-bwd must give equal bits on two launches;
 4. prints a "kernels" JSON line and, as the last line,
    {"ok": true, "device": {...}}.  The card's name and power limit
    (nvidia-smi) is the first line of output.
@@ -660,7 +668,10 @@ def main() -> None:
         tracking_target=tracking))
 
     # K3 at the frame-0 target's shapes: the first frame's downsampled
-    # cloud, k = 20 (covariances) and k = 4 (mean_sq_dist_3nn)
+    # cloud, k = 20 (covariances) and k = 4 (mean_sq_dist_3nn); and a
+    # random cube of as many points, 30% of them invalid, where little
+    # culls (drawn as scripts/torch_knn_times.py draws it, so that the
+    # script's times of two trees compare with this row)
     from gs_icp_slam_torch.utils.pointcloud import (downsample_pointcloud,
                                                     make_downsample_filter)
     cfg = cfg_b
@@ -673,37 +684,63 @@ def main() -> None:
                                intr.depth_scale, intr.depth_trunc)
     pts, trk = pc["points"].contiguous(), pc["trackable"].contiguous()
     R = pts.shape[0]
-    ptsv = pts[trk]
-    nvr = int(ptsv.shape[0])
+    gen_k3 = torch.Generator(device="cpu").manual_seed(5)
+    cube = (torch.rand((R, 3), generator=gen_k3) * 4 - 2).to(dev)
+    cube_valid = (torch.rand(R, generator=gen_k3) > 0.3).to(dev)
     knn = {}
-    for k in (20, 4):
-        i1, d1 = nn_cuda.knn_search_kernel(pts, pts, trk, k)
-        i0, d0 = nn_cuda.knn_plain(pts, pts, trk, k)
+    for case, k, cloud, ok in (("frame0", 20, pts, trk),
+                               ("frame0", 4, pts, trk),
+                               ("cube", 20, cube, cube_valid)):
+        i1, d1 = nn_cuda.knn_search_kernel(cloud, cloud, ok, k)
+        i0, d0 = nn_cuda.knn_plain(cloud, cloud, ok, k)
+        ic, dc, st_k = nn_cuda.knn_search_counts(cloud, cloud, ok, k)
         torch.cuda.synchronize()
         have = d0 < 1e37
         err = float((d1 - d0).abs().max())
         n_idx = int((i1 != i0)[have].sum())
         if n_idx or err > 0.0:
-            problems.append(f"knn k={k}: {n_idx} indices differ, max |dsqd| "
-                            f"{err} (tolerance: exact)")
-        b, by = bound(R * nvr * 10.0, R * 12 * 2 + R + R * k * 8)
-        knn[k] = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: nn_cuda.knn_search_kernel(pts, pts, trk, k)),
-            plain_ms=time_ms(lambda: nn_cuda.knn_plain(pts, pts, trk, k),
+            problems.append(f"knn {case} k={k}: {n_idx} indices differ, max "
+                            f"|dsqd| {err} (tolerance: exact)")
+        if not (torch.equal(ic[have], i0[have]) and torch.equal(dc, d0)):
+            problems.append(f"knn {case} k={k}: the counting call differs "
+                            "from knn_plain")
+        nv = int(ok.sum())
+        # two bases: the pairs the chunked search compares when it takes
+        # each group's chunks one at a time, nearest first (the plain
+        # model), at 10 operations, the row's bound; and every (query,
+        # valid reference) pair, the work of the old scan.  Points,
+        # validity, the outputs
+        nbytes = R * 12 * 2 + R + R * k * 8
+        b_all, by_all = bound(R * nv * 10.0, nbytes)
+        _, _, st_seq = nn_cuda.knn_chunked_plain(
+            cloud, cloud, ok, k, *nn_cuda.knn_orders(cloud, cloud, ok))
+        b_seq, by_seq = bound(st_seq["pairs"] * 10.0, nbytes)
+        okv = cloud[ok]
+        knn[(case, k)] = dict(
+            queries=R, valid_refs=nv, k=k, max_abs_err=err,
+            ms=time_ms(lambda: nn_cuda.knn_search_kernel(cloud, cloud, ok,
+                                                         k)),
+            plain_ms=time_ms(lambda: nn_cuda.knn_plain(cloud, cloud, ok, k),
                              reps=3, warmup=1),
-            bound_ms=b, bound_by=by,
-            library_ms=time_ms(lambda: torch.cdist(pts, ptsv).topk(
-                k, dim=1, largest=False), reps=5))
-    # the main path's k = 20 call is the row; k = 4 (mean_sq_dist_3nn)
-    # rides along under its own keys
+            bound_ms=b_seq, bound_by=by_seq,
+            library_ms=time_ms(lambda: torch.cdist(cloud, okv).topk(
+                k, dim=1, largest=False), reps=5),
+            bound_ms_all_pairs=b_all, bound_by_all_pairs=by_all,
+            chunks=st_k["chunks"], groups=st_k["groups"],
+            chunk_visits=st_k["visits"], chunks_culled=st_k["culled"],
+            pairs_compared=st_k["pairs"],
+            chunk_visits_one_at_a_time=st_seq["visits"],
+            pairs_one_at_a_time=st_seq["pairs"])
+        print(json.dumps({"phase": f"knn {case} k={k}", **knn[(case, k)]}),
+              flush=True)
+    # the main path's call (frame 0, k = 20) is the row; k = 4
+    # (mean_sq_dist_3nn) and the random cube ride along under their keys
     kernels.append(dict(
         name="knn", route="cuda", source="gs_icp_slam_torch/csrc/knn.cu",
         replaces="gs_icp_slam_tpu/ops/nn_pallas.py:113",
         launches=launches_c["knn"], launches_path_a=launches_a["knn"],
-        launches_path_b=launches_b["knn"],
-        **knn[20], queries=R, k=20,
-        k4={kk: v for kk, v in knn[4].items()}))
+        launches_path_b=launches_b["knn"], **knn[("frame0", 20)],
+        k4=knn[("frame0", 4)], random_cube=knn[("cube", 20)]))
 
     # K1-fwd on the compositor inputs of a real 1200x680 view of path B's
     # mapped map (frame 18's estimated pose)
@@ -722,23 +759,35 @@ def main() -> None:
     cargs = (bn.counts, bn.starts, bn.pair_slot, bn.attr_v, ntx, rc.tile_size)
     o1, nc1 = composite_cuda.composite_fwd(*cargs)
     o0, nc0 = composite_cuda.composite_fwd_plain(*cargs)
+    oc, ncc, st_f = composite_cuda.composite_fwd_counts(*cargs)
     torch.cuda.synchronize()
-    if not torch.equal(nc1, nc0):
+    err = float((o1 - o0).abs().max())
+    if not (torch.equal(nc1, nc0) and torch.equal(o1, o0)):
         problems.append(f"composite_fwd: n_contrib differs at "
-                        f"{int((nc1 != nc0).sum())} pixels (tolerance: exact)")
-    # rgb and transmittance in [0, 1]; depth (sum of w * z, z up to ~3 m)
-    # compared relative to its largest value
-    err = max(float((o1[:, [0, 1, 2, 4]] - o0[:, [0, 1, 2, 4]]).abs().max()),
-              float((o1[:, 3] - o0[:, 3]).abs().max())
-              / max(float(o0[:, 3].abs().max()), 1.0))
-    if err > 1e-4:
-        problems.append(f"composite_fwd: max abs error {err} > 1e-4")
-    work = composite_cuda.composite_work(*cargs)
+                        f"{int((nc1 != nc0).sum())} pixels, max |dout| {err} "
+                        "(tolerance: exact)")
+    if not (torch.equal(oc, o0) and torch.equal(ncc, nc0)):
+        problems.append("composite_fwd: the counting call differs from "
+                        "composite_fwd_plain")
+    # the plain model of the kernel's cull: the pairs examined, those that
+    # blend or stop, and that no culled pair would have (lost)
+    _, _, model = composite_cuda.composite_fwd_cull_plain(*cargs)
+    examined, gated = model["examined"], model["gated"]
+    if st_f["evaluated"] + st_f["culled"] != examined or model["lost"]:
+        problems.append(f"composite_fwd: the kernel evaluated "
+                        f"{st_f['evaluated']} and culled {st_f['culled']} "
+                        f"pairs, the plain version examines {examined}; "
+                        f"the plain cull loses {model['lost']} pairs")
     T = bn.counts.shape[0]
     P = rc.tile_size ** 2
     nbytes = (T * 8 + int(bn.counts.sum()) * 4 + bn.attr_v.numel() * 4
               + T * 8 * P * 4)
-    b, by = bound(work * 30.0, nbytes)
+    # two bases: the pairs that blend or stop at ~40 operations (the whole
+    # per-pair arithmetic), the only ones whose work cannot be skipped, the
+    # row's bound; and every pair the plain version examines at ~30
+    # (offsets, power, gate, one exp), the work of the old design
+    b_e, by_e = bound(examined * 30.0, nbytes)
+    b, by = bound(gated * 40.0, nbytes)
     kernels.append(dict(
         name="composite_fwd", route="cuda",
         source="gs_icp_slam_torch/csrc/composite_fwd.cu",
@@ -750,8 +799,11 @@ def main() -> None:
         plain_ms=time_ms(lambda: composite_cuda.composite_fwd_plain(*cargs),
                          reps=2, warmup=1),
         bound_ms=b, bound_by=by, library_ms=None,
-        pairs_examined=work, splats_visible=int(bn.stats[0]),
-        max_count=int(bn.counts.max())))
+        bound_ms_examined=b_e, bound_by_examined=by_e,
+        pairs_examined=examined, pairs_gated=gated,
+        pairs_evaluated=st_f["evaluated"], pairs_culled=st_f["culled"],
+        pairs_culled_plain_model=model["culled"],
+        splats_visible=int(bn.stats[0]), max_count=int(bn.counts.max())))
 
     # K1-bwd on the compositor inputs and the real gradient of one opt step
     # of path B's map: the newest keyframe's view, the mapping loss's g

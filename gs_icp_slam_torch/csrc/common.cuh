@@ -30,6 +30,26 @@ __device__ __forceinline__ float gs_sqdist_bias(float qx, float qy, float qz,
       r.w);
 }
 
+namespace gs {
+
+constexpr unsigned kAllLanes = 0xffffffffu;
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(kAllLanes, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kAllLanes, v, off));
+  return v;
+}
+
+}  // namespace gs
+
 #define GS_EXPORT_ERROR_STRING                                   \
   extern "C" const char* gs_cuda_error_string(int err) {         \
     return cudaGetErrorString(static_cast<cudaError_t>(err));    \

@@ -35,13 +35,14 @@
 //     same splats more often than a row of 16x2 does).  The tile's run is
 //     streamed backwards through shared memory in batches of kBatch
 //     splats, from the block's largest n_contrib down to rank 0, with
-//     barriers only at batch boundaries.  Inside a batch each warp starts at its own
-//     largest n_contrib (__reduce_max_sync) and skips every rank no lane
-//     of it needs: above that bound, and splats whose footprint provably
-//     misses the warp's pixel rectangle (patch_culled: most ranks a warp
-//     reaches blend on none of its lanes).  Inside a walked rank, a
-//     pixel whose power falls below the splat's pmin skips the exp (see
-//     PackedSplat).  For each rank a warp walks, __ballot_sync tells how
+//     barriers only at batch boundaries.  Inside a batch each warp starts
+//     at its own largest n_contrib (__reduce_max_sync) and skips every
+//     rank no lane of it needs: above that bound, and splats whose
+//     footprint provably misses the warp's pixel rectangle (patch_culled:
+//     most ranks a warp reaches blend on none of its lanes).  Inside a
+//     walked rank, a pixel whose power falls below the splat's pmin skips
+//     the exp (see PackedSplat in composite_common.cuh).  For each rank a
+//     warp walks, __ballot_sync tells how
 //     many lanes blended: none (ten zeros), one (that lane's terms are the
 //     sums, no shuffle) or more (a transposing reduce-scatter: each
 //     halving step sends half of what a lane still holds, 12 shuffles for
@@ -75,61 +76,6 @@ constexpr int kStride = kBatch + 1;  // s_part row, padded: lanes of one
 constexpr int kMaxWarps = 32;
 constexpr unsigned kAll = 0xffffffffu;
 using gs::kTerms;
-
-// One splat's ten attributes as three 16-byte words, read with three
-// broadcast loads: (mx, my, ca, cb), (cc, opacity, r, g), (b, depth,
-// pmin).  Below pmin = log((1/255) / opacity) - 0.05 a power is gated out
-// for sure: opacity * exp(power) < 0.952 / 255, far below the gate even
-// after exp's and log's rounding (and every power is, for an opacity <= 0
-// or NaN: pmin = +inf).  The walk skips such pairs before their exp.
-struct alignas(16) PackedSplat {
-  float4 a, b, c;
-};
-
-__device__ __forceinline__ float gate_power(float op) {
-  return op > 0.f ? logf(gs::kAlphaMin / op) - 0.05f : INFINITY;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(kAll, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kAll, v, off));
-  return v;
-}
-
-// True when no pixel of the rectangle [xlo, xhi] x [ylo, yhi] can reach a
-// power of pmin, so that a warp whose pixels lie in it skips the splat.
-// For a positive definite conic (a, b; b, c) the power at offset d is
-// -0.5 d'Ad <= -0.5 lam |d|^2 with lam = det / (a + c) <= the smaller
-// eigenvalue, and |d|^2 >= gx^2 + gy^2, the squared distance from the
-// splat's centre to the rectangle.  The condition number is held below
-// 1e4, so that the power the walk computes is within ~1e-2 of -0.5 d'Ad
-// relative to lam |d|^2, and the bound is shrunk by 2% and an absolute
-// 0.01 (on top of pmin's own margin).  Any other conic culls nothing.
-__device__ __forceinline__ bool patch_culled(const PackedSplat& s, float xlo,
-                                             float xhi, float ylo,
-                                             float yhi) {
-  const float a = s.a.z, b = s.a.w, c = s.b.x;
-  if (!(a > 0.f && c > 0.f)) return false;
-  const float det = a * c - b * b, tr = a + c;
-  if (!(det * 1e4f > tr * tr)) return false;
-  const float lam = det / tr;
-  const float gx = fmaxf(fmaxf(xlo - s.a.x, s.a.x - xhi), 0.f);
-  const float gy = fmaxf(fmaxf(ylo - s.a.y, s.a.y - yhi), 0.f);
-  return 0.5f * lam * (gx * gx + gy * gy) * 0.98f > 0.01f - s.c.z;
-}
-
-__device__ __forceinline__ gs::Splat unpack(const PackedSplat& s) {
-  return gs::Splat{s.a.x, s.a.y, s.a.z, s.a.w, s.b.x,
-                   s.b.z, s.b.w, s.c.x, s.b.y, s.c.y};
-}
 
 // The warp's sum of each of the ten terms v[0..9], scattered over the
 // lanes: lane l gets the sum of term scatter_term(l) (the lanes of an
@@ -181,7 +127,7 @@ composite_bwd_walk(const int* __restrict__ counts,
                    const int* __restrict__ n_contrib,
                    const float* __restrict__ g, float* __restrict__ cell) {
   extern __shared__ float4 s_dyn[];
-  PackedSplat* s_splat = reinterpret_cast<PackedSplat*>(s_dyn);
+  gs::PackedSplat* s_splat = reinterpret_cast<gs::PackedSplat*>(s_dyn);
   float* s_part = reinterpret_cast<float*>(s_splat + kBatch);
   __shared__ int s_wwalk[kMaxWarps];
   __shared__ unsigned s_wmask[kMaxWarps][kBatch / 32];  // ranks walked
@@ -193,14 +139,8 @@ composite_bwd_walk(const int* __restrict__ counts,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  // a warp covers an 8 x 4 patch where side allows (pixels of one warp
-  // then stop near the same rank and blend the same splats), else whole
-  // rows
-  const int wx = side / 8;  // warps across a row of the corner
-  const int lx = side % 8 == 0 ? (lane & 7) + 8 * (warp % wx) : tid % side;
-  const int ly = side % 8 == 0 ? (lane >> 3) + 4 * (warp / wx) : tid / side;
-  const int x = (sub % nsx) * side + lx;
-  const int y = (sub / nsx) * side + ly;
+  const int2 xy = gs::corner_pixel(tid, side, sub, nsx);
+  const int x = xy.x, y = xy.y;
   const bool pixel = tid < side * side && x < tile && y < tile;
   const int P = tile * tile;
   const int pid = y * tile + x;
@@ -221,10 +161,10 @@ composite_bwd_walk(const int* __restrict__ counts,
     p.gtf_tf = g[base + 4 * P] * p.tr;
   }
   // the warp's pixel rectangle, for the per-splat cull
-  const float xlo = warp_min(pixel ? px : INFINITY);
-  const float xhi = warp_max(pixel ? px : -INFINITY);
-  const float ylo = warp_min(pixel ? py : INFINITY);
-  const float yhi = warp_max(pixel ? py : -INFINITY);
+  const float xlo = gs::warp_min(pixel ? px : INFINITY);
+  const float xhi = gs::warp_max(pixel ? px : -INFINITY);
+  const float ylo = gs::warp_min(pixel ? py : INFINITY);
+  const float yhi = gs::warp_max(pixel ? py : -INFINITY);
   const int wwalk = __reduce_max_sync(kAll, nc);
   if (lane == 0) s_wwalk[warp] = wwalk;
   __syncthreads();
@@ -241,14 +181,7 @@ composite_bwd_walk(const int* __restrict__ counts,
     const int n = min(kBatch, walk - b0);
     __syncthreads();  // the previous batch's partials have been read
     for (int j = tid; j < n; j += blockDim.x) {
-      const int s = pair_slot[start + b0 + j];
-      s_splat[j] = PackedSplat{
-          make_float4(attr[s], attr[Vp + s], attr[2 * Vp + s],
-                      attr[3 * Vp + s]),
-          make_float4(attr[4 * Vp + s], attr[8 * Vp + s], attr[5 * Vp + s],
-                      attr[6 * Vp + s]),
-          make_float4(attr[7 * Vp + s], attr[9 * Vp + s],
-                      gate_power(attr[8 * Vp + s]), 0.f)};
+      s_splat[j] = gs::load_packed(attr, Vp, pair_slot[start + b0 + j]);
     }
     __syncthreads();
     // the ranks this warp walks: below its own largest n_contrib, and not
@@ -259,7 +192,8 @@ composite_bwd_walk(const int* __restrict__ counts,
     for (int q = 0; q < kBatch / 32; ++q) {
       const int j = q * 32 + lane;
       walked[q] = __ballot_sync(
-          kAll, j < top && !patch_culled(s_splat[j], xlo, xhi, ylo, yhi));
+          kAll,
+          j < top && !gs::patch_culled(s_splat[j], xlo, xhi, ylo, yhi));
       if (lane == 0) s_wmask[warp][q] = walked[q];
     }
 #pragma unroll
@@ -273,7 +207,7 @@ composite_bwd_walk(const int* __restrict__ counts,
         for (int c = 0; c < kTerms; ++c) v[c] = 0.f;
         bool blended = false;
         if (b0 + j < nc) {
-          const gs::Splat sp = unpack(s_splat[j]);
+          const gs::Splat sp = gs::unpack(s_splat[j]);
           if (!(gs::splat_power(sp, px - sp.mx, py - sp.my) <
                 s_splat[j].c.z))
             blended = gs::bwd_pair(p, px, py, sp, v);
@@ -361,7 +295,7 @@ extern "C" int composite_bwd_launch(const int* counts, const int* starts,
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = (side * side + 31) / 32 * 32;
   const int nsx = (tile + side - 1) / side;
-  const int smem = static_cast<int>(kBatch * sizeof(PackedSplat)) +
+  const int smem = static_cast<int>(kBatch * sizeof(gs::PackedSplat)) +
                    threads / 32 * kTerms * kStride *
                        static_cast<int>(sizeof(float));
   if (T > 0) {

@@ -33,6 +33,74 @@ __device__ __forceinline__ float splat_power(const Splat& s, float dx,
   return -0.5f * (s.ca * dx * dx + s.cc * dy * dy) - s.cb * dx * dy;
 }
 
+// One splat's ten attributes as three 16-byte words, read with three
+// broadcast loads: (mx, my, ca, cb), (cc, opacity, r, g), (b, depth,
+// pmin).  Below pmin = log((1/255) / opacity) - 0.05 a power is gated out
+// for sure: opacity * exp(power) < 0.952 / 255, far below the gate even
+// after exp's and log's rounding (and every power is, for an opacity <= 0
+// or NaN: pmin = +inf).  K1-fwd and K1-bwd skip such pairs before their
+// exp; a pair so skipped neither blends nor stops its pixel.
+struct alignas(16) PackedSplat {
+  float4 a, b, c;
+};
+
+__device__ __forceinline__ float gate_power(float op) {
+  return op > 0.f ? logf(kAlphaMin / op) - 0.05f : INFINITY;
+}
+
+// Column s of the channel-first attribute table attr (rows >= 10, Vp
+// columns), packed.
+__device__ __forceinline__ PackedSplat load_packed(
+    const float* __restrict__ attr, int Vp, int s) {
+  return PackedSplat{
+      make_float4(attr[s], attr[Vp + s], attr[2 * Vp + s], attr[3 * Vp + s]),
+      make_float4(attr[4 * Vp + s], attr[8 * Vp + s], attr[5 * Vp + s],
+                  attr[6 * Vp + s]),
+      make_float4(attr[7 * Vp + s], attr[9 * Vp + s],
+                  gate_power(attr[8 * Vp + s]), 0.f)};
+}
+
+__device__ __forceinline__ Splat unpack(const PackedSplat& s) {
+  return Splat{s.a.x, s.a.y, s.a.z, s.a.w, s.b.x,
+               s.b.z, s.b.w, s.c.x, s.b.y, s.c.y};
+}
+
+// True when no pixel of the rectangle [xlo, xhi] x [ylo, yhi] can reach a
+// power of pmin, so that a warp whose pixels lie in it skips the splat.
+// For a positive definite conic (a, b; b, c) the power at offset d is
+// -0.5 d'Ad <= -0.5 lam |d|^2 with lam = det / (a + c) <= the smaller
+// eigenvalue, and |d|^2 >= gx^2 + gy^2, the squared distance from the
+// splat's centre to the rectangle.  The condition number is held below
+// 1e4, so that the power the kernels compute is within ~1e-2 of
+// -0.5 d'Ad relative to lam |d|^2, and the bound is shrunk by 2% and an
+// absolute 0.01 (on top of pmin's own margin).  Any other conic (not
+// positive definite, ill-conditioned, NaN) culls nothing.
+__device__ __forceinline__ bool patch_culled(const PackedSplat& s, float xlo,
+                                             float xhi, float ylo,
+                                             float yhi) {
+  const float a = s.a.z, b = s.a.w, c = s.b.x;
+  if (!(a > 0.f && c > 0.f)) return false;
+  const float det = a * c - b * b, tr = a + c;
+  if (!(det * 1e4f > tr * tr)) return false;
+  const float lam = det / tr;
+  const float gx = fmaxf(fmaxf(xlo - s.a.x, s.a.x - xhi), 0.f);
+  const float gy = fmaxf(fmaxf(ylo - s.a.y, s.a.y - yhi), 0.f);
+  return 0.5f * lam * (gx * gx + gy * gy) * 0.98f > 0.01f - s.c.z;
+}
+
+// The pixel of thread tid in a block that covers the side x side corner
+// `sub` of a tile (nsx corners across): a warp takes an 8 x 4 patch where
+// side allows (pixels of one warp then stop near the same rank and reach
+// the same splats), else whole rows.  Tile-local (x, y).
+__device__ __forceinline__ int2 corner_pixel(int tid, int side, int sub,
+                                             int nsx) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wx = side / 8;  // warps across a row of the corner
+  const int lx = side % 8 == 0 ? (lane & 7) + 8 * (warp % wx) : tid % side;
+  const int ly = side % 8 == 0 ? (lane >> 3) + 4 * (warp / wx) : tid / side;
+  return make_int2((sub % nsx) * side + lx, (sub / nsx) * side + ly);
+}
+
 // A pixel of the forward's front-to-back loop.
 struct FwdPixel {
   float tr = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, cd = 0.f;

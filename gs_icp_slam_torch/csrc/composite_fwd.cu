@@ -20,61 +20,122 @@
 // last splat the pixel blended (0 for none), where the backward
 // (composite_bwd.cu) starts its reverse walk.
 //
-// What bounds it on the H100: arithmetic on the (pixel, splat) pairs each
-// pixel examines before it stops, ~30 fp32 operations each (one exp);
-// the inputs read are a few MB.  The count depends on the data:
-// chip_smoke.py counts it from the run's own view.
+// What bounds it on the H100: arithmetic on (pixel, splat) pairs, against
+// a few MB of inputs.  A pixel examines every splat of its run until it
+// stops (~30 fp32 operations each, one exp), but most of those pairs lie
+// outside the splat's footprint and are gated out: only the pairs that
+// blend or stop need the whole arithmetic.  chip_smoke.py counts both
+// from a real view.
 //
-// Design: one block per tile, one thread per pixel (P = tile^2 <= 1024).
-// The block streams its run through shared memory in batches of kBatch
-// splats, each thread gathering one splat's 10 attributes through
-// pair_slot: no dense (T, 16, K) gather, no payload window and no buffer
-// of size K (K reaches max_per_tile = 4096).  Each thread composites front
-// to back and stops at the done rule; the block leaves as soon as no
-// thread is left (__syncthreads_count), the per-tile early exit of the
-// Pallas kernel.  Built without fused multiply-add so that the plain
-// PyTorch version rounds the same way; the per-pair arithmetic is shared
-// with K1-bwd and K4 (composite_common.cuh).
+// Design: one block per side x side corner of a tile (side = 16: four
+// 256-thread blocks per 32-pixel tile; the whole tile when tile <= 16),
+// one thread per pixel, a warp on an 8x4 patch (gs::corner_pixel, as in
+// K1-bwd).  Every block streams the tile's whole run front to back through
+// shared memory, one splat per thread per batch, packed with its gate
+// power pmin (gs::PackedSplat).  In each batch a warp tests 32 splats at
+// once, a lane each, against its patch's rectangle (gs::patch_culled) and
+// walks the survivors in rank order; a lane whose power falls below pmin
+// skips its exp.  A culled pair or a skipped exp is one the forward's own
+// gate would refuse (opacity * exp(power) < 1/255): it neither blends nor
+// stops the pixel.  Every other pair is computed as before, in the same
+// order, with the shared per-pair arithmetic (gs::fwd_blend) and without
+// fused multiply-add, so out and n_contrib are bit-equal to the plain
+// PyTorch version.  A warp leaves a batch as soon as all its lanes have
+// stopped (__all_sync), the block leaves the run as soon as no lane is
+// left (__syncthreads_count): the per-tile early exit of the Pallas
+// kernel, per warp and per block.  With counters, the kernel also counts
+// the pairs it evaluated and those the rectangle test culled, over the
+// pixels still running; together they are the pairs the plain version
+// examines.
 #include "common.cuh"
 #include "composite_common.cuh"
 
 namespace {
 
-constexpr int kBatch = 256;
+constexpr int kMaxThreads = 256;  // a 16 x 16 corner
+constexpr int kSide = 16;         // composite_cuda.BWD_SIDE
+constexpr unsigned kAll = 0xffffffffu;
 
-__global__ void __launch_bounds__(1024)
+template <bool kCount>
+__global__ void __launch_bounds__(kMaxThreads)
 composite_fwd_kernel(const int* __restrict__ counts,
                      const int* __restrict__ starts,
                      const int* __restrict__ pair_slot,
                      const float* __restrict__ attr, int Vp, int ntx,
-                     int tile, float* __restrict__ out,
-                     int* __restrict__ n_contrib) {
-  __shared__ float s_attr[10][kBatch];
-  const int t = blockIdx.x;
+                     int tile, int side, float* __restrict__ out,
+                     int* __restrict__ n_contrib,
+                     unsigned long long* __restrict__ counters) {
+  __shared__ gs::PackedSplat s_splat[kMaxThreads];
+  const int nsx = (tile + side - 1) / side;
+  const int nsub = nsx * nsx;
+  const int t = blockIdx.x / nsub;
+  const int sub = blockIdx.x - t * nsub;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int2 xy = gs::corner_pixel(tid, side, sub, nsx);
+  const bool pixel = tid < side * side && xy.x < tile && xy.y < tile;
   const int P = tile * tile;
-  const int pid = threadIdx.x;
-  const float px = static_cast<float>((t % ntx) * tile + pid % tile);
-  const float py = static_cast<float>((t / ntx) * tile + pid / tile);
+  const int pid = xy.y * tile + xy.x;
+  const float px = static_cast<float>((t % ntx) * tile + xy.x);
+  const float py = static_cast<float>((t / ntx) * tile + xy.y);
   const int count = counts[t];
   const int start = starts[t];
+  // the warp's pixel rectangle, for the per-splat cull
+  const float xlo = gs::warp_min(pixel ? px : INFINITY);
+  const float xhi = gs::warp_max(pixel ? px : -INFINITY);
+  const float ylo = gs::warp_min(pixel ? py : INFINITY);
+  const float yhi = gs::warp_max(pixel ? py : -INFINITY);
+  unsigned long long evaluated = 0ull, culled = 0ull;  // with kCount
 
   gs::FwdPixel p;
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
+  const int nb = blockDim.x;  // splats per batch: one per thread
+  for (int b0 = 0; b0 < count; b0 += nb) {
     // also the barrier that keeps the previous batch until all have read it
-    if (__syncthreads_count(!p.done) == 0) break;
-    const int n = min(kBatch, count - b0);
-    for (int j = pid; j < n; j += blockDim.x) {
-      const int s = pair_slot[start + b0 + j];
-#pragma unroll
-      for (int c = 0; c < 10; ++c) s_attr[c][j] = attr[c * Vp + s];
-    }
+    if (__syncthreads_count(pixel && !p.done) == 0) break;
+    const int n = min(nb, count - b0);
+    if (tid < n)
+      s_splat[tid] = gs::load_packed(attr, Vp, pair_slot[start + b0 + tid]);
     __syncthreads();
-    if (p.done) continue;
-    for (int j = 0; j < n; ++j) {
-      gs::fwd_blend(p, px, py, gs::splat_at(s_attr, j), b0 + j);
-      if (p.done) break;
+    for (int q0 = 0; q0 < n; q0 += 32) {
+      const bool live = pixel && !p.done;
+      if (!__any_sync(kAll, live)) break;
+      const int j = q0 + lane;
+      unsigned bits = __ballot_sync(
+          kAll,
+          j < n && !gs::patch_culled(s_splat[j], xlo, xhi, ylo, yhi));
+      int prev = -1;  // the last survivor walked
+      while (bits != 0u) {
+        const int jb = __ffs(bits) - 1;  // ranks in increasing order
+        bits &= bits - 1u;
+        const bool on = pixel && !p.done;
+        if (kCount) {  // warp-uniform sums; lane 0 adds them at the end
+          // the ranks culled since the last survivor met the same pixels
+          const unsigned long long a = __popc(__ballot_sync(kAll, on));
+          evaluated += a;
+          culled += a * static_cast<unsigned long long>(jb - prev - 1);
+        }
+        prev = jb;
+        if (on) {
+          const gs::PackedSplat& ps = s_splat[q0 + jb];
+          const gs::Splat sp = gs::unpack(ps);
+          if (!(gs::splat_power(sp, px - sp.mx, py - sp.my) < ps.c.z))
+            gs::fwd_blend(p, px, py, sp, b0 + q0 + jb);
+        }
+        if (__all_sync(kAll, !pixel || p.done)) break;
+      }
+      if (kCount) {  // the culled ranks after the last survivor
+        const unsigned long long a =
+            __popc(__ballot_sync(kAll, pixel && !p.done));
+        culled += a * static_cast<unsigned long long>(min(32, n - q0) -
+                                                      prev - 1);
+      }
     }
   }
+  if (kCount && lane == 0) {
+    atomicAdd(&counters[0], evaluated);
+    atomicAdd(&counters[1], culled);
+  }
+  if (!pixel) return;
   float* o = out + static_cast<size_t>(t) * 8 * P + pid;
   o[0 * P] = p.cr;
   o[1 * P] = p.cg;
@@ -93,17 +154,29 @@ GS_EXPORT_ERROR_STRING
 
 // counts, starts (T,) int32; pair_slot (Np,) int32; attr (>= 10, Vp)
 // float32 channel-first; out (T, 8, tile*tile) float32; n_contrib
-// (T, tile*tile) int32; tile*tile <= 1024.
+// (T, tile*tile) int32; tile*tile <= 1024.  counters: null, or two zeroed
+// 64-bit words that receive the pairs evaluated and the pairs culled.
 extern "C" int composite_fwd_launch(const int* counts, const int* starts,
                                     const int* pair_slot, const float* attr,
                                     int T, int Vp, int ntx, int tile,
                                     float* out, int* n_contrib,
+                                    unsigned long long* counters,
                                     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int P = tile * tile;
   if (P < 1 || P > 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (T <= 0) return static_cast<int>(cudaGetLastError());
-  composite_fwd_kernel<<<T, P, 0, stream>>>(counts, starts, pair_slot, attr,
-                                            Vp, ntx, tile, out, n_contrib);
+  const int side = min(tile, kSide);
+  const int nsx = (tile + side - 1) / side;
+  const int threads = (side * side + 31) / 32 * 32;
+  if (counters != nullptr) {
+    composite_fwd_kernel<true><<<T * nsx * nsx, threads, 0, stream>>>(
+        counts, starts, pair_slot, attr, Vp, ntx, tile, side, out, n_contrib,
+        counters);
+  } else {
+    composite_fwd_kernel<false><<<T * nsx * nsx, threads, 0, stream>>>(
+        counts, starts, pair_slot, attr, Vp, ntx, tile, side, out, n_contrib,
+        nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }

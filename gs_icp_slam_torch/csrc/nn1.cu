@@ -24,7 +24,7 @@
 // out by a bound on whole chunks.
 //
 // Design, two launches:
-//  1. nn1_chunks: one block per chunk of kChunk positions of the
+//  1. gs::nn_chunks: one block per chunk of kChunk positions of the
 //     reference order.  It drops the invalid references (a valid bias is
 //     0, so leaving out its add changes no bit), packs the rest in order
 //     as (x, y, z, original index), and writes their count and their
@@ -65,148 +65,25 @@
 // is tight; warps reading references from device memory one at a time
 // wait on every load.
 //
-// The lower bound.  For boxes [qlo, qhi] (queries) and [lo, hi] (a
-// chunk), per axis g = max(qlo - hi, lo - qhi, 0) and
-// lb = ((gx*gx + gy*gy) + gz*gz) * (1 - 2^-20), each operation rounded to
-// nearest on its own (built with -fmad=false).  For a query q and a
-// reference r in the boxes, q.x - r.x >= qlo.x - hi.x and r.x - q.x >=
-// lo.x - qhi.x hold exactly, and rounding to nearest is monotone, so
-// |fl(q.x - r.x)| >= fl(gap) >= 0, and every later operation (a square of
-// a larger non-negative number, a sum of larger addends) rounds to a
-// value at least as large: lb before the shrink is already <= the rounded
-// distance of every pair of the two boxes.  The shrink by 2^-20 is a
-// margin on top of that argument; a NaN gap counts as 0.
-#include "common.cuh"
+// The lower bound, its proof and the chunk packing are shared with K3
+// (nn_common.cuh).
+#include "nn_common.cuh"
 
 namespace {
 
-constexpr int kChunk = 128;       // references per chunk
+using gs::kChunk;
+using gs::kMaxChunks;
+using gs::pack;
+using gs::sqdist;
 constexpr int kGroup = 64;        // queries per block, two a lane
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kCoop = 4;          // nearest chunks compared by all warps
-constexpr int kMaxChunks = 8192;  // the sort buffer: 64 KB of shared memory
-constexpr float kShrink = 1.0f - 1.0f / 1048576.0f;
 constexpr unsigned kAll = 0xffffffffu;
 
-__device__ __forceinline__ unsigned long long pack(float d, int i) {
-  return (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
-         static_cast<unsigned int>(i);
-}
-
-// The squared distance of a valid reference (bias 0, its add left out).
-__device__ __forceinline__ float sqdist(float qx, float qy, float qz,
-                                        float4 r) {
-  const float dx = __fsub_rn(qx, r.x);
-  const float dy = __fsub_rn(qy, r.y);
-  const float dz = __fsub_rn(qz, r.z);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
-__device__ __forceinline__ float gap(float qlo, float qhi, float lo,
-                                     float hi) {
-  return fmaxf(fmaxf(__fsub_rn(qlo, hi), __fsub_rn(lo, qhi)), 0.f);
-}
-
-// The lower bound above, between [qlo, qhi] and [lo, hi] (.xyz).
-__device__ __forceinline__ float box_lb(float3 qlo, float3 qhi, float4 lo,
-                                        float4 hi) {
-  const float gx = gap(qlo.x, qhi.x, lo.x, hi.x);
-  const float gy = gap(qlo.y, qhi.y, lo.y, hi.y);
-  const float gz = gap(qlo.z, qhi.z, lo.z, hi.z);
-  return __fmul_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
-                __fmul_rn(gz, gz)),
-      kShrink);
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(kAll, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kAll, v, off));
-  return v;
-}
-
-__global__ void __launch_bounds__(kChunk)
-nn1_chunks(const float* __restrict__ rT, const float* __restrict__ bias,
-           const int* __restrict__ rorder, int L, int Tp,
-           float4* __restrict__ cref, float4* __restrict__ cbox,
-           int* __restrict__ ccount,
-           unsigned long long* __restrict__ counters) {
-  __shared__ int s_n[kChunk / 32];
-  __shared__ float s_box[6][kChunk / 32];
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int j = c * kChunk + tid;
-  if (j == 0) counters[0] = counters[1] = 0ull;
-  int slot = -1;
-  if (j < L) slot = rorder == nullptr ? j : rorder[j];
-  const bool in = slot >= 0 && slot < Tp && bias[slot] == 0.f;
-  float x = 0.f, y = 0.f, z = 0.f;
-  if (in) {
-    x = rT[slot];
-    y = rT[Tp + slot];
-    z = rT[2 * Tp + slot];
-  }
-  const unsigned m = __ballot_sync(kAll, in);
-  float b[6] = {in ? x : INFINITY,  in ? y : INFINITY,  in ? z : INFINITY,
-                in ? x : -INFINITY, in ? y : -INFINITY, in ? z : -INFINITY};
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    b[k] = warp_min(b[k]);
-    b[k + 3] = warp_max(b[k + 3]);
-  }
-  if (lane == 0) {
-    s_n[warp] = __popc(m);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) s_box[k][warp] = b[k];
-  }
-  __syncthreads();
-  int off = 0, total = 0;
-  for (int w = 0; w < kChunk / 32; ++w) {
-    off += w < warp ? s_n[w] : 0;
-    total += s_n[w];
-  }
-  if (in) {
-    cref[static_cast<size_t>(c) * kChunk + off +
-         __popc(m & ((1u << lane) - 1u))] =
-        make_float4(x, y, z, __int_as_float(slot));
-  }
-  if (tid == 0) {
-    float4 lo = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
-    float4 hi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.f);
-    for (int w = 0; w < kChunk / 32; ++w) {
-      lo.x = fminf(lo.x, s_box[0][w]);
-      lo.y = fminf(lo.y, s_box[1][w]);
-      lo.z = fminf(lo.z, s_box[2][w]);
-      hi.x = fmaxf(hi.x, s_box[3][w]);
-      hi.y = fmaxf(hi.y, s_box[4][w]);
-      hi.z = fmaxf(hi.z, s_box[5][w]);
-    }
-    cbox[2 * c] = lo;
-    cbox[2 * c + 1] = hi;
-    ccount[c] = total;
-  }
-}
-
-// One query slot of a lane: its index (-1 past Q), point and best; live
-// when its point is finite (a query with an inf or NaN coordinate is at
-// no finite distance from anything, keeps (3.4e38, 0), and neither widens
-// the group's box nor asks for a chunk).
-struct Query {
-  int q;
-  bool live;
-  float x, y, z;
+// One query slot of a lane: its point and best.  The best starts at
+// (3.4e38, 0), the Pallas kernel's initial state.
+struct Query : gs::QueryPoint {
   float bd;
   int bi;
 };
@@ -214,14 +91,10 @@ struct Query {
 __device__ __forceinline__ Query load_query(const float* __restrict__ query,
                                             const int* __restrict__ qorder,
                                             int Q, int k) {
-  Query a{-1, false, 0.f, 0.f, 0.f, GS_BIG, 0};
-  if (k < Q) {
-    a.q = qorder == nullptr ? k : qorder[k];
-    a.x = query[3 * a.q + 0];
-    a.y = query[3 * a.q + 1];
-    a.z = query[3 * a.q + 2];
-    a.live = isfinite(a.x) && isfinite(a.y) && isfinite(a.z);
-  }
+  Query a;
+  static_cast<gs::QueryPoint&>(a) = gs::load_query_point(query, qorder, Q, k);
+  a.bd = GS_BIG;
+  a.bi = 0;
   return a;
 }
 
@@ -255,8 +128,7 @@ __device__ __forceinline__ void take(Query& a, unsigned long long m) {
 // Does this query still need chunk [lo, hi]: its own bound is at most its
 // best.
 __device__ __forceinline__ bool needs(const Query& a, float4 lo, float4 hi) {
-  const float3 p = make_float3(a.x, a.y, a.z);
-  return a.live && box_lb(p, p, lo, hi) <= a.bd;
+  return gs::point_needs(a, lo, hi, a.bd);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -290,40 +162,14 @@ nn1_search(const float* __restrict__ query, const int* __restrict__ qorder,
     bx[5] = fmaxf(a.live ? a.z : -INFINITY, b.live ? b.z : -INFINITY);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      bx[k] = warp_min(bx[k]);
-      bx[k + 3] = warp_max(bx[k + 3]);
+      bx[k] = gs::warp_min(bx[k]);
+      bx[k + 3] = gs::warp_max(bx[k + 3]);
     }
     glo = make_float3(bx[0], bx[1], bx[2]);
     ghi = make_float3(bx[3], bx[4], bx[5]);
   }
   if (tid < kGroup) s_best[tid] = pack(GS_BIG, 0);
-  for (int c = tid; c < nsort; c += kThreads) {
-    unsigned long long key = ~0ull;
-    if (c < nch) {
-      const float lb = ccount[c] > 0
-                           ? box_lb(glo, ghi, cbox[2 * c], cbox[2 * c + 1])
-                           : INFINITY;
-      key = pack(lb, c);
-    }
-    s_key[c] = key;
-  }
-  __syncthreads();
-  // bitonic sort of the (bound, chunk) keys, ascending
-  for (int k = 2; k <= nsort; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < nsort; i += kThreads) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long u = s_key[i], w = s_key[ixj];
-          if ((u > w) == ((i & k) == 0)) {
-            s_key[i] = w;
-            s_key[ixj] = u;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  gs::sort_chunks(glo, ghi, cbox, ccount, nch, nsort, s_key);
 
   // The nearest kCoop chunks first, one at a time, every warp on a share
   // of each chunk's references: the queries get close bests before the
@@ -335,8 +181,8 @@ nn1_search(const float* __restrict__ query, const int* __restrict__ qorder,
     const unsigned long long key = s_key[k0];
     const float lb = __uint_as_float(static_cast<unsigned int>(key >> 32));
     const int c = static_cast<int>(key & 0xffffffffull);
-    const float worst = warp_max(fmaxf(a.live ? a.bd : 0.f,
-                                       b.live ? b.bd : 0.f));
+    const float worst = gs::warp_max(fmaxf(a.live ? a.bd : 0.f,
+                                           b.live ? b.bd : 0.f));
     if (lb > worst) {  // every later chunk is at least as far
       k0 = nch;
       break;
@@ -376,8 +222,8 @@ nn1_search(const float* __restrict__ query, const int* __restrict__ qorder,
     const int c = static_cast<int>(key & 0xffffffffull);
     take(a, atomicOr(&s_best[lane], 0ull));
     take(b, atomicOr(&s_best[lane + 32], 0ull));
-    const float worst = warp_max(fmaxf(a.live ? a.bd : 0.f,
-                                       b.live ? b.bd : 0.f));
+    const float worst = gs::warp_max(fmaxf(a.live ? a.bd : 0.f,
+                                           b.live ? b.bd : 0.f));
     if (lb > worst) break;  // every later chunk is at least as far
     const float4 lo = cbox[2 * c];
     const float4 hi = cbox[2 * c + 1];
@@ -461,16 +307,12 @@ extern "C" int nn1_launch(const float* query, const int* qorder, int Q,
   const int nch = (L + kChunk - 1) / kChunk;
   if (Q < 0 || Tp < 0 || L < Tp || nch > kMaxChunks)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int m = nch > 0 ? nch : 1;
-  float4* cref = static_cast<float4*>(scratch);
-  float4* cbox = cref + static_cast<size_t>(m) * kChunk;
-  auto* counters = reinterpret_cast<unsigned long long*>(cbox + 2 * m);
-  int* ccount = reinterpret_cast<int*>(counters + 2);
-  nn1_chunks<<<m, kChunk, 0, stream>>>(rT, bias, rorder, L, Tp, cref, cbox,
-                                       ccount, counters);
+  const gs::ChunkScratch cs = gs::chunk_scratch(scratch, nch);
+  gs::nn_chunks<<<nch > 0 ? nch : 1, kChunk, 0, stream>>>(
+      rT, Tp, 1, bias, nullptr, rorder, L, Tp, cs.cref, cs.cbox, cs.ccount,
+      cs.counters);
   if (Q == 0) return static_cast<int>(cudaGetLastError());
-  int nsort = 1;
-  while (nsort < nch) nsort <<= 1;
+  const int nsort = gs::sort_size(nch);
   const int smem =
       kWarps * kChunk * static_cast<int>(sizeof(float4)) +
       nsort * static_cast<int>(sizeof(unsigned long long));
@@ -480,6 +322,7 @@ extern "C" int nn1_launch(const float* query, const int* qorder, int Q,
         nn1_search, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   nn1_search<<<(Q + kGroup - 1) / kGroup, kThreads, smem, stream>>>(
-      query, qorder, Q, cref, cbox, ccount, nch, nsort, idx, sqd, counters);
+      query, qorder, Q, cs.cref, cs.cbox, cs.ccount, nch, nsort, idx, sqd,
+      cs.counters);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,6 +22,13 @@ splat's cells through its pair rows (`splat_rows`: from the binning, or
 `gather_cells_plain` are that design in plain PyTorch.  `make_composite`
 and `make_composite_dyn` build the K4a/K4b entry points the same way.
 
+Both K1 kernels give each warp an 8x4 patch of pixels and skip a splat
+when a rectangle test proves that no pixel of the patch reaches the
+splat's gate power (`patch_culled_plain`, `fwd_warp_patches`);
+`composite_fwd_cull_plain` is K1-fwd's cull in plain PyTorch, and
+`composite_fwd_counts` reads the kernel's own count of the pairs it
+evaluated and culled, for chip_smoke.py.
+
 The plain versions share one rank-at-a-time loop over a run layout: the
 splats of each tile's run gathered rank-major, (10, T, kmax), with an
 in-run mask.  K1 gathers it through pair_slot; K4 reads its dense block.
@@ -40,13 +47,13 @@ _I = ctypes.c_int
 
 COMPOSITE_FWD = CudaKernel("composite_fwd", "composite_fwd.cu",
                            "composite_fwd_launch",
-                           [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
+                           [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P])
 COMPOSITE_BWD = CudaKernel("composite_bwd", "composite_bwd.cu",
                            "composite_bwd_launch",
                            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                             _P, _P, _I, _P, _P, _P])
-# K1-bwd's block covers a BWD_SIDE x BWD_SIDE corner of a tile (the whole
-# tile when it is smaller): four blocks per 32-pixel tile
+# K1-fwd's and K1-bwd's block covers a BWD_SIDE x BWD_SIDE corner of a
+# tile (the whole tile when it is smaller): four blocks per 32-pixel tile
 BWD_SIDE = 16
 # K4a (dense) and K4b (dense with per-tile counts): one source, four entry
 # points, each with its own launch count
@@ -118,19 +125,75 @@ def _geometry(aj, px, py):
     return dx, dy, power, gexp, araw, gate
 
 
-def _composite_loop(px, py, in_run, a):
+def gate_power_plain(op: torch.Tensor) -> torch.Tensor:
+    """The kernels' per-splat gate power pmin (composite_common.cuh
+    gate_power): below it opacity * exp(power) < 0.952 / 255, so the pair
+    is gated out; +inf for an opacity <= 0 or NaN."""
+    return torch.where(op > 0.0, torch.log(ALPHA_MIN / op) - 0.05,
+                       float("inf"))
+
+
+def patch_culled_plain(a: torch.Tensor, xlo, xhi, ylo, yhi) -> torch.Tensor:
+    """The kernels' rectangle test (composite_common.cuh patch_culled), in
+    its operation order: True where no pixel of [xlo, xhi] x [ylo, yhi]
+    can reach the splat's gate power.  a (10, ...) splat rows, broadcast
+    with the rectangle's bounds; a conic that is not positive definite or
+    has a condition number of 1e4 or more culls nothing."""
+    ca, cb, cc = a[2], a[3], a[4]
+    det = ca * cc - cb * cb
+    tr = ca + cc
+    ok = (ca > 0.0) & (cc > 0.0) & (det * 1e4 > tr * tr)
+    lam = det / tr
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    gx = torch.fmax(torch.fmax(xlo - a[0], a[0] - xhi), zero)
+    gy = torch.fmax(torch.fmax(ylo - a[1], a[1] - yhi), zero)
+    return ok & (0.5 * lam * (gx * gx + gy * gy) * 0.98
+                 > 0.01 - gate_power_plain(a[8]))
+
+
+def fwd_warp_patches(tile: int) -> torch.Tensor:
+    """K1-fwd's warps (composite_common.cuh corner_pixel): (tile^2,) the
+    warp of each pixel of a tile, numbered block by block (a block per
+    BWD_SIDE x BWD_SIDE corner, an 8x4 patch a warp)."""
+    side = min(tile, BWD_SIDE)
+    nsx = -(-tile // side)
+    threads = -(-side * side // 32) * 32
+    tid = torch.arange(threads)
+    lane, warp = tid % 32, tid // 32
+    if side % 8 == 0:
+        wx = side // 8
+        lx = lane % 8 + 8 * (warp % wx)
+        ly = lane // 8 + 4 * (warp // wx)
+    else:
+        lx, ly = tid % side, tid // side
+    patch = torch.full((tile * tile,), -1, dtype=torch.long)
+    for sub in range(nsx * nsx):
+        x = (sub % nsx) * side + lx
+        y = (sub // nsx) * side + ly
+        ok = (tid < side * side) & (x < tile) & (y < tile)
+        patch[(y * tile + x)[ok]] = sub * (threads // 32) + warp[ok]
+    return patch
+
+
+def _composite_loop(px, py, in_run, a, skip=None):
     """The forward kernels' front-to-back loop over a run layout, one
     splat rank at a time over (T, P) pixel vectors, in the kernels'
     operation order.  Returns the (T, 8, P) output, n_contrib (T, P) int32
-    and the number of (pixel, splat) pairs examined: for each pixel, the
-    splats of its run up to and including the one that stops it."""
+    and counts of (pixel, splat) pairs: examined (for each pixel, the
+    splats of its run up to and including the one that stops it), gated
+    (those that blend or stop), and, with skip (T, P, kmax) bool, the
+    pairs K1-fwd's rectangle test skips: culled (the examined pairs
+    skipped) and lost (skipped pairs, or pairs whose power is below the
+    splat's gate power, that would have blended or stopped: none, if the
+    kernel's skips are exact).  A skipped pair neither blends nor stops."""
     T, P = px.shape
     kmax = a.shape[2]
     dev = a.device
     f = dict(dtype=a.dtype, device=dev)
     out = torch.zeros((T, 8, P), **f)
     n_contrib = torch.zeros((T, P), dtype=torch.int32, device=dev)
-    examined = torch.zeros((), dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    examined = gated = culled = lost = zero
     tr = torch.ones((T, P), **f)
     acc = torch.zeros((4, T, P), **f)
     done = torch.zeros((T, P), dtype=torch.bool, device=dev)
@@ -138,8 +201,15 @@ def _composite_loop(px, py, in_run, a):
         aj = a[:, :, j:j + 1]                                         # (10, T, 1)
         live = in_run[:, j:j + 1] & ~done
         examined = examined + live.sum()
-        _, _, _, _, araw, gate = _geometry(aj, px, py)
+        _, _, power, _, araw, gate = _geometry(aj, px, py)
         gate = gate & live
+        if skip is not None:
+            sk = skip[:, :, j]
+            low = power < gate_power_plain(aj[8])
+            culled = culled + (live & sk).sum()
+            lost = lost + (gate & (sk | low)).sum()
+            gate = gate & ~sk
+        gated = gated + gate.sum()
         alpha = torch.where(gate, torch.clamp(araw, max=ALPHA_MAX), 0.0)
         t_next = tr * (1.0 - alpha)
         stop = gate & (t_next < T_EPS)
@@ -152,7 +222,7 @@ def _composite_loop(px, py, in_run, a):
         n_contrib = torch.where(inc, j + 1, n_contrib)
     out[:, 0:4] = acc.permute(1, 0, 2)
     out[:, 4] = tr
-    return out, n_contrib, examined
+    return out, n_contrib, examined, gated, culled, lost
 
 
 def composite_fwd_plain(counts: torch.Tensor, starts: torch.Tensor,
@@ -172,6 +242,39 @@ def composite_work(counts: torch.Tensor, starts: torch.Tensor,
     return int(_composite_loop(px, py, in_run, a)[2])
 
 
+def composite_fwd_cull_plain(counts: torch.Tensor, starts: torch.Tensor,
+                             pair_slot: torch.Tensor, attr: torch.Tensor,
+                             ntx: int, tile: int):
+    """Plain PyTorch model of K1-fwd's warp cull: the loop of
+    composite_fwd_plain with every pair skipped that the kernel's
+    rectangle test skips for the pixel's warp (fwd_warp_patches,
+    patch_culled_plain on the warp's pixel rectangle).  Returns (out,
+    n_contrib, stats) with stats {"examined", "gated", "evaluated" (the
+    examined pairs the rectangle test lets through), "culled", "lost"}
+    (see _composite_loop): exact skips give lost 0 and composite_fwd_plain's
+    bits; gated counts the pairs that blend or stop, the work behind
+    K1-fwd's second bound.  Holds a (T, P, kmax) mask."""
+    px, py, in_run, _, a = _runs(counts, starts, pair_slot, attr, ntx, tile)
+    patch = fwd_warp_patches(tile).to(a.device)
+    n = int(patch.max()) + 1
+    T = px.shape[0]
+    rect = []
+    for v, red, fill in ((px, "amin", float("inf")),
+                         (px, "amax", -float("inf")),
+                         (py, "amin", float("inf")),
+                         (py, "amax", -float("inf"))):
+        r = torch.full((T, n), fill, dtype=a.dtype, device=a.device)
+        rect.append(r.scatter_reduce(1, patch.expand(T, -1), v, red)[
+            ..., None])                                          # (T, n, 1)
+    culled = patch_culled_plain(a[:, :, None, :], *rect)         # (T, n, K)
+    out, n_contrib, examined, gated, cull, lost = _composite_loop(
+        px, py, in_run, a, skip=culled[:, patch])
+    stats = dict(examined=int(examined), gated=int(gated),
+                 evaluated=int(examined - cull), culled=int(cull),
+                 lost=int(lost))
+    return out, n_contrib, stats
+
+
 def _check_inputs(counts, starts, pair_slot, attr, tile):
     dev = attr.device
     T = counts.shape[0]
@@ -183,6 +286,19 @@ def _check_inputs(counts, starts, pair_slot, attr, tile):
         raise ValueError(f"attr has {attr.shape[0]} rows, needs 10")
     if not 1 <= tile * tile <= 1024:
         raise ValueError(f"tile {tile}: tile^2 must be in 1..1024")
+
+
+def _launch_fwd(counts, starts, pair_slot, attr, ntx, tile, counters):
+    dev = attr.device
+    T = counts.shape[0]
+    out = torch.empty((T, 8, tile * tile), dtype=torch.float32, device=dev)
+    n_contrib = torch.empty((T, tile * tile), dtype=torch.int32, device=dev)
+    COMPOSITE_FWD(counts.data_ptr(), starts.data_ptr(), pair_slot.data_ptr(),
+                  attr.data_ptr(), T, attr.shape[1], ntx, tile,
+                  out.data_ptr(), n_contrib.data_ptr(),
+                  None if counters is None else counters.data_ptr(),
+                  stream_ptr(dev))
+    return out, n_contrib
 
 
 def composite_fwd(counts: torch.Tensor, starts: torch.Tensor,
@@ -200,16 +316,29 @@ def composite_fwd(counts: torch.Tensor, starts: torch.Tensor,
     n_contrib (T, tile^2) int32).
     """
     _check_inputs(counts, starts, pair_slot, attr, tile)
-    dev = attr.device
-    if not on_cuda(dev):
+    if not on_cuda(attr.device):
         return composite_fwd_plain(counts, starts, pair_slot, attr, ntx, tile)
-    T = counts.shape[0]
-    out = torch.empty((T, 8, tile * tile), dtype=torch.float32, device=dev)
-    n_contrib = torch.empty((T, tile * tile), dtype=torch.int32, device=dev)
-    COMPOSITE_FWD(counts.data_ptr(), starts.data_ptr(), pair_slot.data_ptr(),
-                  attr.data_ptr(), T, attr.shape[1], ntx, tile,
-                  out.data_ptr(), n_contrib.data_ptr(), stream_ptr(dev))
-    return out, n_contrib
+    return _launch_fwd(counts, starts, pair_slot, attr, ntx, tile, None)
+
+
+def composite_fwd_counts(counts: torch.Tensor, starts: torch.Tensor,
+                         pair_slot: torch.Tensor, attr: torch.Tensor,
+                         ntx: int, tile: int):
+    """K1-fwd on the card as composite_fwd, also reading what it did (a
+    host sync; for measurement): (out, n_contrib, stats), stats
+    {"evaluated": the (pixel, splat) pairs whose power the kernel
+    computed, "culled": those its warp-rectangle test skipped}, counted by
+    the kernel over the pixels still running; their sum is the examined
+    count of composite_work, and composite_fwd_cull_plain models both."""
+    _check_inputs(counts, starts, pair_slot, attr, tile)
+    if not on_cuda(attr.device):
+        raise ValueError("composite_fwd_counts reads the kernel's counters: "
+                         "CUDA tensors only")
+    counters = torch.zeros(2, dtype=torch.int64, device=attr.device)
+    out, n_contrib = _launch_fwd(counts, starts, pair_slot, attr, ntx, tile,
+                                 counters)
+    evaluated, culled = counters.tolist()
+    return out, n_contrib, dict(evaluated=evaluated, culled=culled)
 
 
 def _composite_bwd_loop(px, py, in_run, a, out, n_contrib, g):

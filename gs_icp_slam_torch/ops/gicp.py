@@ -31,7 +31,7 @@ from ..utils.se3 import se3_exp
 from .covariance import (cov_to_quat_scale, estimate_covariances,
                          quat_scale_to_reg_cov6, regularize_plane)
 from .knn import knn_search, knn_search_grid, resolve_grid_span
-from .nn_cuda import nn_search_pre
+from .nn_cuda import morton_order, nn_search_pre
 
 _BIG = 3.4e38
 
@@ -88,33 +88,12 @@ def _cov_mat_to6(cov: torch.Tensor) -> torch.Tensor:
                         cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2]], dim=0)
 
 
-def _spread3(x: torch.Tensor) -> torch.Tensor:
-    """The low 10 bits of x (int64) moved to bits 0, 3, 6, ..., 27."""
-    x = x & 0x3FF
-    x = (x | (x << 16)) & 0x030000FF
-    x = (x | (x << 8)) & 0x0300F00F
-    x = (x | (x << 4)) & 0x030C30C3
-    return (x | (x << 2)) & 0x09249249
-
-
 def spatial_order(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """K2's reference order of a (3, T) cloud: the valid slots in Morton
-    (Z-curve) order on a 1024^3 grid over their bounding box, so that a
-    run of slots is a compact piece of space, then the invalid slots in
-    increasing order.  (T,) int32, a permutation of [0, T); one sort, no
-    host sync."""
-    T = points.shape[1]
-    inf = float("inf")  # a Python scalar: no upload, no host sync
-    lo = torch.where(valid[None], points, inf).amin(1, keepdim=True)
-    hi = torch.where(valid[None], points, -inf).amax(1, keepdim=True)
-    span = torch.clamp(hi - lo, min=1e-12)
-    cell = torch.nan_to_num(((points - lo) / span * 1023.0).clamp(0, 1023))
-    cell = cell.to(torch.int64)
-    code = (_spread3(cell[0]) | (_spread3(cell[1]) << 1)
-            | (_spread3(cell[2]) << 2))
-    key = torch.where(valid, code, 1 << 30) * T + torch.arange(
-        T, device=points.device)
-    return torch.sort(key).indices.to(torch.int32)
+    """K2's reference order of a (3, T) cloud: nn_cuda.morton_order on a
+    1024^3 grid, so that a run of slots is a compact piece of space, the
+    invalid slots last in increasing order.  (T,) int32, a permutation of
+    [0, T); one sort, no host sync."""
+    return morton_order(points.T, valid, bits=10)
 
 
 _GRID_ORDERS: dict = {}

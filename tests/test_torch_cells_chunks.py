@@ -1,5 +1,5 @@
-"""PyTorch port: the plain versions of the K1-bwd and K2 designs, on the
-CPU at small sizes.
+"""PyTorch port: the plain versions of the K1-bwd, K2, K1-fwd and K3
+designs, on the CPU at small sizes.
 
 K1-bwd sums each (tile, rank) cell into a cell buffer indexed by pair row,
 then each splat's cells through the binning's splat -> pair-row map.  Here
@@ -14,6 +14,21 @@ exceed the rounded distance of any pair it covers, and the plain model of
 the whole search (nn1_chunked_plain) must equal nn1_plain exactly, indices
 and distances, on planted cases: ties across chunks, queries on box
 faces, coordinates of 1e3 m, chunks with no valid reference.
+
+K1-fwd's warps skip a splat when a rectangle test proves that no pixel of
+their 8x4 patch can pass the gate, and a pixel skips its exp below the
+splat's gate power.  The plain model of both (composite_fwd_cull_plain)
+must never skip a pair that the plain compositor blends or stops at, and
+so give its bits, on random and binned splats and on conics and
+opacities the test must leave alone (degenerate, ill-conditioned, NaN,
+opacity <= 0).
+
+K3 sorts both clouds by Morton cell and keeps a (distance, index) list
+per query over chunks visited nearest first; its plain model
+(knn_chunked_plain) must equal knn_plain exactly: on the synthetic
+frame-0 cloud, a random cube with invalid references, duplicates (exact
+ties), queries that are not the references, fewer than k valid
+references and no references.
 """
 import numpy as np
 import pytest
@@ -23,6 +38,8 @@ from gs_icp_slam_torch.ops import composite_cuda as cc
 from gs_icp_slam_torch.ops import nn_cuda
 from gs_icp_slam_torch.ops.gicp import grid_block_order, spatial_order
 from gs_icp_slam_torch.ops.rasterize import bin_splats
+from gs_icp_slam_torch.utils.pointcloud import (downsample_pointcloud,
+                                                make_downsample_filter)
 
 _BIG = np.float32(3.4e38)
 CH = nn_cuda.NN_CHUNK
@@ -226,3 +243,210 @@ def test_orders_are_permutations():
     nv = int(v.sum())
     assert v[s[:nv]].all() and torch.equal(
         s[nv:], torch.nonzero(~v).squeeze(1))
+
+
+# ------------------------------------------------------------ K1-fwd ----
+
+def _fwd_case(name):
+    """(counts, starts, pair_slot, attr) tensors, ntx, tile."""
+    if name.startswith("binned"):
+        tile = int(name.split("_")[1])
+        b = _binning(tile, 3 if tile == 16 else 2, 256)
+        return (b.counts, b.starts, b.pair_slot, b.attr_v), -(-128 // tile), \
+            tile
+    rng = np.random.default_rng(7)
+    tile = 32 if name.endswith("32") else 16
+    ntx, nty, V, K = 3, 2, 256, 160
+    T = ntx * nty
+    counts = rng.integers(40, K, size=(T,)).astype(np.int32)
+    counts[5] = 0  # an empty tile
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    pair_slot = rng.integers(0, V, size=(int(counts.sum()),)).astype(np.int32)
+    attr = np.zeros((10, V), np.float32)
+    attr[0] = rng.uniform(-8, ntx * tile + 8, V)
+    attr[1] = rng.uniform(-8, nty * tile + 8, V)
+    sat = name.startswith("saturated")
+    lo, hi = (0.001, 0.01) if sat else (0.01, 0.2)
+    attr[2] = rng.uniform(lo, hi, V)
+    attr[4] = rng.uniform(lo, hi, V)
+    attr[3] = rng.uniform(-0.9, 0.9, V) * np.sqrt(attr[2] * attr[4])
+    attr[5:8] = rng.uniform(0, 1, (3, V))
+    attr[8] = rng.uniform(0.8 if sat else 0.05, 0.99, V)
+    attr[9] = rng.uniform(0.5, 5.0, V)
+    if name.startswith("odd"):
+        # conics and opacities the rectangle test must leave to the gate:
+        # not positive definite, singular, condition ~1e6 and just under
+        # 1e4, NaN, nearly zero; opacity 0, negative, NaN, tiny
+        odd = [(-0.05, 0.0, 0.05, 0.6), (0.02, 0.05, 0.02, 0.6),
+               (0.0, 0.0, 0.0, 0.6), (0.05, 0.05 * (1 - 1e-6), 0.05, 0.6),
+               (0.05, 0.0498, 0.05, 0.6), (np.nan, 0.0, 0.05, 0.6),
+               (0.01, 0.0, 1e-7, 0.6), (0.05, 0.0, 0.05, 0.0),
+               (0.05, 0.0, 0.05, -0.5), (0.05, 0.0, 0.05, np.nan),
+               (0.05, 0.0, 0.05, 1e-30)]
+        for i, (a, b, c, op) in enumerate(odd):
+            attr[2:5, i], attr[8, i] = (a, b, c), op
+        pair_slot[::3] = rng.integers(0, len(odd), pair_slot[::3].shape)
+    return [torch.as_tensor(a) for a in (counts, starts, pair_slot,
+                                         attr)], ntx, tile
+
+
+@pytest.mark.parametrize("name", ["random_16", "random_32", "saturated_32",
+                                  "odd_16", "odd_32", "binned_16",
+                                  "binned_32"])
+def test_fwd_warp_cull_is_exact(name):
+    """No pair the plain compositor blends or stops at is culled by a
+    warp's rectangle or skipped below its gate power; the culled model
+    gives the plain version's bits, and evaluated + culled = examined."""
+    args, ntx, tile = _fwd_case(name)
+    out0, nc0 = cc.composite_fwd_plain(*args, ntx, tile)
+    out1, nc1, st = cc.composite_fwd_cull_plain(*args, ntx, tile)
+    assert st["lost"] == 0
+    assert torch.equal(out1, out0) and torch.equal(nc1, nc0)
+    assert st["evaluated"] + st["culled"] == st["examined"]
+    assert st["examined"] == cc.composite_work(*args, ntx, tile)
+    if not name.startswith("saturated"):
+        assert st["culled"] > 0.3 * st["examined"]
+
+
+@pytest.mark.parametrize("tile", [4, 8, 16, 20, 32])
+def test_fwd_warp_patches(tile):
+    """Every pixel of a tile belongs to one warp, a warp holds at most 32
+    pixels, and where the corner allows it a warp's pixels are an 8x4
+    patch."""
+    patch = cc.fwd_warp_patches(tile)
+    assert (patch >= 0).all()
+    n = torch.bincount(patch)
+    assert int(n.max()) <= 32
+    if tile % 8 == 0:
+        pid = torch.arange(tile * tile)
+        for w in range(int(patch.max()) + 1):
+            x, y = pid[patch == w] % tile, pid[patch == w] // tile
+            assert int(x.max() - x.min()) == 7 and int(y.max() - y.min()) == 3
+
+
+def test_patch_culled_plain_bound():
+    """On random conics and rectangles the test never culls a splat that
+    reaches its gate power at one of the rectangle's pixels."""
+    rng = np.random.default_rng(3)
+    n = 4000
+    a = np.zeros((10, n), np.float32)
+    a[0], a[1] = rng.uniform(-20, 40, n), rng.uniform(-20, 40, n)
+    a[2], a[4] = rng.uniform(1e-3, 1.0, n), rng.uniform(1e-3, 1.0, n)
+    a[3] = rng.uniform(-0.999, 0.999, n) * np.sqrt(a[2] * a[4])
+    a[8] = rng.uniform(0.0, 1.0, n)
+    t = torch.as_tensor(a)
+    xs, ys = torch.arange(8.0), torch.arange(4.0)  # an 8x4 patch at 0, 0
+    culled = cc.patch_culled_plain(t, 0.0, 7.0, 0.0, 3.0)
+    dx = xs[:, None, None] - t[0]
+    dy = ys[None, :, None] - t[1]
+    power = -0.5 * (t[2] * dx * dx + t[4] * dy * dy) - t[3] * dx * dy
+    reach = (power >= cc.gate_power_plain(t[8])).any(1).any(0)
+    assert not (culled & reach).any()
+    assert culled.float().mean() > 0.3
+
+
+# ---------------------------------------------------------------- K3 ----
+
+@pytest.fixture(scope="module")
+def frame0_knn():
+    """The synthetic sequence's first downsampled cloud (1200x680,
+    downsample 10) and knn_plain's k = 20 answer for every fourth point
+    (rows are independent: the cost is in the reference, not the
+    search)."""
+    from gs_icp_slam_torch.config import synthetic_config
+    from gs_icp_slam_torch.datasets import open_dataset
+
+    seq = open_dataset("synthetic", width=1200, height=680, num_frames=1)
+    intr = synthetic_config(seq.intr, downsample_rate=10).intr
+    filt = make_downsample_filter(intr.width, intr.height, intr.fx, intr.fy,
+                                  intr.cx, intr.cy, 10)
+    fr = seq[0]
+    pc = downsample_pointcloud(filt, torch.from_numpy(fr.depth),
+                               torch.from_numpy(fr.rgb), intr.depth_scale,
+                               intr.depth_trunc)
+    pts, valid = pc["points"].contiguous(), pc["trackable"].contiguous()
+    return pts, valid, nn_cuda.knn_plain(pts[::4].contiguous(), pts, valid,
+                                         20)
+
+
+def _knn_cases():
+    rng = np.random.default_rng(1)
+    cube = rng.uniform(-2, 2, (2000, 3)).astype(np.float32)
+    base = rng.normal(size=(400, 3)).astype(np.float32)
+    dup = np.concatenate([base, base[::-1], base])
+    few = np.zeros(500, bool)
+    few[[3, 77, 400]] = True
+    return {
+        "cube": (cube, cube, rng.random(2000) > 0.3, True),
+        "duplicates": (dup, dup, rng.random(1200) > 0.2, True),
+        "query_not_ref": (rng.normal(size=(301, 3)).astype(np.float32),
+                          cube[:1777], rng.random(1777) > 0.3, False),
+        "few_valid": (cube[:500], cube[:500], few, True),
+        "no_refs": (cube[:40], np.zeros((0, 3), np.float32),
+                    np.zeros(0, bool), False),
+    }
+
+
+KNN_CASES = _knn_cases()
+
+
+def _knn_equal(q, r, v, k, want, unordered=True):
+    i0, d0 = want
+    have = d0 < 1e37
+    for orders in (nn_cuda.knn_orders(q, r, v), (None, None))[
+            :2 if unordered else 1]:
+        i1, d1, st = nn_cuda.knn_chunked_plain(q, r, v, k, *orders)
+        assert torch.equal(d1, d0)
+        assert torch.equal(i1[have], i0[have])
+    return st
+
+
+@pytest.mark.parametrize("k", [20, 4])
+def test_knn_chunked_search_on_frame0(frame0_knn, k):
+    pts, valid, (i20, d20) = frame0_knn
+    # knn_plain's first k columns are its k-NN (a stable sort)
+    ro, qo = nn_cuda.knn_orders(pts, pts, valid)
+    i1, d1, st = nn_cuda.knn_chunked_plain(pts, pts, valid, k, ro, qo)
+    assert torch.equal(d1[::4], d20[:, :k]) and torch.equal(i1[::4],
+                                                            i20[:, :k])
+    assert st["culled"] > 0.8  # a surface in Morton cells culls
+
+
+@pytest.mark.parametrize("k", [1, 4, 20, 32])
+@pytest.mark.parametrize("name", list(KNN_CASES))
+def test_knn_chunked_search_equals_plain(name, k):
+    q, r, v, same = KNN_CASES[name]
+    r, v = torch.as_tensor(r), torch.as_tensor(v)
+    q = r if same else torch.as_tensor(q)
+    st = _knn_equal(q, r, v, k, nn_cuda.knn_plain(q, r, v, k),
+                    unordered=name != "cube")
+    if name == "few_valid":
+        assert st["culled"] == 0.0  # no threshold below 3.4e38: no cull
+
+
+def test_knn_order_plain():
+    """morton_order (K3's order at 5 bits, K2's at 10): a permutation, the
+    valid points by Morton cell, the invalid ones after them in index
+    order."""
+    rng = np.random.default_rng(6)
+    pts = torch.as_tensor(rng.normal(size=(900, 3)).astype(np.float32))
+    pts[5] = float("nan")
+    v = torch.as_tensor(rng.random(900) > 0.25)
+    nv = int(v.sum())
+    for bits in (5, 10):
+        o = nn_cuda.morton_order(pts, v, bits).long()
+        assert torch.equal(torch.sort(o).values, torch.arange(900))
+        assert v[o[:nv]].all()
+        assert torch.equal(o[nv:], torch.nonzero(~v).squeeze(1))
+    # K2's target order is the same function on a (3, T) cloud
+    assert torch.equal(spatial_order(pts.T.contiguous(), v),
+                       nn_cuda.morton_order(pts, v, 10))
+    # the 32^3 cells of the valid points ascend along the order
+    p = pts[nn_cuda.morton_order(pts, v).long()[:nv]]
+    lo = p.nan_to_num(nan=float("inf")).amin(0)
+    hi = p.nan_to_num(nan=-float("inf")).amax(0)
+    c = ((p - lo) / (hi - lo) * 32).nan_to_num(nan=0.0).clamp(0, 31).long()
+    code = sum(((c[:, a] >> b) & 1) << (3 * b + a) for b in range(5)
+               for a in range(3))
+    assert (code[1:] >= code[:-1]).all()
+    assert nn_cuda.morton_order(torch.zeros((0, 3))).shape == (0,)

@@ -6,12 +6,14 @@ with the card but without JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tolerances: K2 and K3 are exact (the kernels round each operation of the
-distance as PyTorch does, and keep the lowest-index tie rule); K1-fwd
-atol 1e-5 and n_contrib exact (the same operation order; exp may differ
-by an ulp); K1-bwd each attribute row within 1e-4 of the row's largest
-|gradient| (the same per-pair arithmetic, but the pixel sums are taken
-by warp shuffles, per-warp partials and per-splat cell sums in another
-order), and equal bits on two runs (no atomics); K4a/K4b forward atol
+distance as PyTorch does, and keep the lowest-index tie rule; K3's
+indices where a neighbour exists, its distances everywhere); K1-fwd
+exact, out and n_contrib (the same operation order, and the pairs its
+warps skip are ones the gate refuses); K1-bwd each attribute row within
+1e-4 of the row's largest |gradient| (the same per-pair arithmetic, but
+the pixel sums are taken by warp shuffles, per-warp partials and
+per-splat cell sums in another order), and equal bits on two runs (no
+atomics); K4a/K4b forward atol
 1e-5 with n_contrib exact, backward each row within 1e-4 of the row's
 largest |gradient| (no atomics: the kernel's warp sums are added in a
 fixed order, so two runs give the same bits).
@@ -115,6 +117,78 @@ def test_nn1_kernel_no_valid_ref_ordered(dev):
     assert (i1 == 0).all() and (d1 == np.float32(3.4e38)).all()
 
 
+def _knn_case(case, rng):
+    """(query, ref, valid) numpy arrays and whether query is ref."""
+    if case == "duplicates":  # every point four times: exact ties
+        base = rng.normal(size=(700, 3)).astype(np.float32)
+        pts = np.concatenate([base, base, base[::-1], base])
+        return pts, pts, rng.random(pts.shape[0]) > 0.2, True
+    if case == "query_not_ref":  # Q, R not multiples of 32 or 128
+        ref = rng.normal(size=(1777, 3)).astype(np.float32)
+        q = rng.normal(size=(1001, 3)).astype(np.float32)
+        q[:5] = ref[:5]
+        return q, ref, rng.random(1777) > 0.3, False
+    if case == "few_valid":  # fewer than k valid references
+        pts = rng.normal(size=(500, 3)).astype(np.float32)
+        valid = np.zeros(500, bool)
+        valid[[3, 77, 400]] = True
+        return pts, pts, valid, True
+    if case == "no_refs":
+        return (rng.normal(size=(37, 3)).astype(np.float32),
+                np.zeros((0, 3), np.float32), np.zeros(0, bool), False)
+    # "surface": a pixel-grid cloud, invalid points at the camera centre
+    src, _, _ = _surface(69, 120, 5)
+    valid = rng.random(src.shape[0]) > 0.1
+    src[~valid] = 0.0
+    return src, src, valid, True
+
+
+@pytest.mark.parametrize("k", [1, 4, 20, 32])
+@pytest.mark.parametrize("case", ["duplicates", "query_not_ref",
+                                  "few_valid", "no_refs", "surface"])
+def test_knn_kernel_cases(dev, k, case):
+    """K3 (chunks in Morton order, lists merged across warps) against
+    knn_plain: indices where a neighbour exists, distances everywhere;
+    the counting entry point gives the same results."""
+    q, ref, valid, same = _knn_case(case, np.random.default_rng(k))
+    r = torch.as_tensor(ref).to(dev)
+    v = torch.as_tensor(valid).to(dev)
+    qt = r if same else torch.as_tensor(q).to(dev)
+    i0, d0 = nn_cuda.knn_plain(qt, r, v, k)
+    i1, d1 = nn_cuda.knn_search_kernel(qt, r, v, k)
+    i2, d2, st = nn_cuda.knn_search_counts(qt, r, v, k)
+    have = d0 < 1e37
+    for i, d in ((i1, d1), (i2, d2)):
+        assert torch.equal(d, d0)
+        assert torch.equal(i[have], i0[have])
+    if case == "surface" and k == 20:  # a compact cloud culls chunks
+        assert st["culled"] > 0.5
+    if case == "few_valid":
+        assert (d1[:, 3:] == np.float32(3.4e38)).all()
+
+
+def test_new_entry_points_count_their_launches(dev):
+    """composite_fwd_counts and knn_search_counts launch their kernels
+    once a call, and their counts add up as the plain model's do."""
+    from gs_icp_slam_torch import cuda_build
+
+    counts, starts, pair_slot, attr, ntx, tile = _composite_inputs(False)
+    args = [torch.as_tensor(a).to(dev) for a in (counts, starts, pair_slot,
+                                                 attr)]
+    pts = torch.randn((300, 3), device=dev)
+    valid = torch.ones(300, dtype=torch.bool, device=dev)
+    fwd, knn = (cuda_build.KERNELS[n] for n in ("composite_fwd", "knn"))
+    n0 = (fwd.launches, knn.launches)
+    _, _, st = composite_cuda.composite_fwd_counts(*args, ntx, tile)
+    assert (fwd.launches, knn.launches) == (n0[0] + 1, n0[1])
+    nn_cuda.knn_search_counts(pts, pts, valid, 4)
+    assert (fwd.launches, knn.launches) == (n0[0] + 1, n0[1] + 1)
+    want = composite_cuda.composite_fwd_cull_plain(
+        *[a.cpu() for a in args], ntx, tile)[2]
+    assert st["evaluated"] + st["culled"] == want["examined"]
+    assert st == {k: want[k] for k in ("evaluated", "culled")}
+
+
 @pytest.mark.parametrize("k", [1, 4, 20, 32])
 def test_knn_kernel_matches_plain(dev, k):
     rng = np.random.default_rng(k)
@@ -168,8 +242,80 @@ def test_composite_kernel_matches_plain(dev, saturated, tile):
                                                  attr)]
     got, nc = composite_cuda.composite_fwd(*args, ntx, tile)
     ref, nc0 = composite_cuda.composite_fwd_plain(*args, ntx, tile)
-    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    assert torch.equal(got, ref)
     assert torch.equal(nc, nc0)
+
+
+def _odd_splats(attr, tile, ntx):
+    """attr with columns appended for splats the warp cull must leave to
+    the gate, centred on tiles 1 and 2: conics that are not positive
+    definite, singular, ill-conditioned (condition ~1e6 and just under
+    1e4) or NaN; opacity 0, negative or NaN.  Returns (attr, the new
+    columns of tile 1, of tile 2)."""
+    cx = lambda t: (t % ntx) * tile + tile / 2  # noqa: E731
+    cy = lambda t: (t // ntx) * tile + tile / 2  # noqa: E731
+    conics = [(-0.05, 0.0, 0.05), (0.02, 0.05, 0.02), (0.0, 0.0, 0.0),
+              (0.05, 0.05 * (1 - 1e-6), 0.05), (0.05, 0.0498, 0.05),
+              (float("nan"), 0.0, 0.05), (0.01, 0.0, 1e-7)]
+    cols = []
+    for i, (a, b, c) in enumerate(conics):
+        cols.append([cx(1) + i, cy(1) - i, a, b, c, 0.9, 0.2, 0.4, 0.6,
+                     2.0])
+    for op in (0.0, -0.5, float("nan"), 1e-30):
+        cols.append([cx(2), cy(2), 0.01, 0.0, 0.01, 0.3, 0.6, 0.9, op, 1.5])
+    extra = np.asarray(cols, np.float32).T
+    V = attr.shape[1]
+    attr = np.concatenate([attr, extra], 1)
+    return attr, np.arange(V, V + len(conics)), np.arange(
+        V + len(conics), V + extra.shape[1])
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("case", ["K4096", "odd_splats", "ragged"])
+def test_composite_kernel_is_bit_equal(dev, tile, case):
+    """K1-fwd (a block per 16x16 corner, 8x4 warp patches culling splats
+    before the exp) gives composite_fwd_plain's bits: runs up to K =
+    4096; splats whose conic or opacity the cull must not judge, beside an
+    empty tile; and a binned view whose last tile row and column hang over
+    the image."""
+    if case == "ragged":
+        rng = np.random.default_rng(tile)
+        n = 500
+        xyz = np.stack([rng.uniform(-0.9, 0.9, n), rng.uniform(-0.6, 0.6, n),
+                        rng.uniform(1.2, 3.0, n)], 1).astype(np.float32)
+        t = [torch.as_tensor(a).to(dev) for a in (
+            xyz, rng.normal(size=(n, 4)).astype(np.float32),
+            rng.uniform(0.02, 0.08, (n, 3)).astype(np.float32),
+            rng.uniform(0.3, 0.95, n).astype(np.float32),
+            rng.uniform(-0.4, 0.4, (n, 1, 3)).astype(np.float32))]
+        b = bin_splats(*t, torch.eye(4, device=dev),
+                       torch.ones(n, dtype=torch.bool, device=dev), 60.0,
+                       60.0, 59.5, 44.5, sh_degree=0, width=120, height=90,
+                       tile=tile, visible_cap=1024, tile_span=3,
+                       tile_cap=512)
+        args = [b.counts, b.starts, b.pair_slot, b.attr_v.detach()]
+        ntx = -(-120 // tile)
+    else:
+        kw = dict(tile=tile, empty=(0,))
+        if case == "K4096":
+            kw.update(K=4096, V=2048)
+        counts, starts, pair_slot, attr, ntx, tile = _composite_inputs(
+            False, **kw)
+        if case == "odd_splats":
+            attr, c1, c2 = _odd_splats(attr, tile, ntx)
+            for t_, cols in ((1, c1), (2, c2)):
+                rows = starts[t_] + np.arange(0, len(cols) * 3, 3)
+                keep = rows < starts[t_] + counts[t_]
+                assert keep.sum() >= 4
+                pair_slot[rows[keep]] = cols[keep]
+        args = [torch.as_tensor(a).to(dev) for a in (counts, starts,
+                                                     pair_slot, attr)]
+    got, nc = composite_cuda.composite_fwd(*args, ntx, tile)
+    ref, nc0 = composite_cuda.composite_fwd_plain(*args, ntx, tile)
+    assert torch.equal(got, ref)
+    assert torch.equal(nc, nc0)
+    if case != "ragged":
+        assert (nc[0] == 0).all() and (got[0, 4] == 1).all()  # empty tile
 
 
 @pytest.mark.parametrize("case", ["K128", "K128_saturated", "K4096",
