@@ -31,8 +31,12 @@
    debug mode, counted inside the fused step);
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (K4a/K4b: inputs as scripts/tpu_kernel_smoke.py
-   makes them, plus zero-opacity and empty tiles, the forward also
-   against a numpy front-to-back oracle on a few tiles), and times kernel,
+   makes them, plus zero-opacity and empty tiles, and K4_view, path B's
+   frame-18 view binned at 16-pixel tiles and packed into dense blocks of
+   256; forward bit-equal, also against a numpy front-to-back oracle on a
+   few tiles, with the pairs it evaluated and culled; backward equal bits
+   on two launches, with the (warp, rank) pairs it walked and culled),
+   and times kernel,
    plain version and, where one exists, a single PyTorch library call
    computing the same function (CUDA events), beside the least time the
    card could take (bound).  K2 runs twice: on a random cube, and on the
@@ -42,12 +46,16 @@
    K3 runs on the first frame's cloud (k = 20 and k = 4) and on a random
    cube of as many points, 30% invalid, with the chunk visits and pairs
    its search counted and bounds on two bases (the row's: the pairs a
-   one-chunk-at-a-time search compares; beside it, every pair); K1-fwd
+   one-chunk-at-a-time search compares; beside it, every pair), and at
+   k = 40 (two passes); K2 and K3 also on 1,179,648 references (above
+   2^20: chunks sorted a segment at a time); K1-fwd
    must give its plain version's bits, with the pairs it evaluated and
    culled (counted by the kernel, adding up to the pairs the plain
    version examines) and bounds on two bases (the row's: the pairs that
-   blend or stop; beside it, every examined pair); K2, K3 and K1-fwd are
-   exact; K1-bwd must give equal bits on two launches;
+   blend or stop; beside it, every examined pair; the backwards': the
+   pairs that blended; beside it, every walked pair); K2, K3, K1-fwd and
+   the K4 forwards are exact; K1-bwd and the K4 backwards must give equal
+   bits on two launches;
 4. prints a "kernels" JSON line and, as the last line,
    {"ok": true, "device": {...}}.  The card's name and power limit
    (nvidia-smi) is the first line of output.
@@ -110,8 +118,9 @@ REFINE_DRAWS_C = [
 # different keyframe decision).
 TOL_ATE_M = 5e-4
 TOL_PSNR_DB = 0.1
-# K1-bwd against its plain version: each attribute row within this share
-# of the row's largest |gradient| (pixel sums in another order, by atomics)
+# K1-bwd and the K4 backwards against their plain versions: each attribute
+# row within this share of the row's largest |gradient| (pixel sums in
+# another order)
 TOL_BWD_ROW = 1e-4
 # K4a/K4b forward against the numpy front-to-back oracle (float32, the same
 # operation order; exp may differ by an ulp and flip a pair across the
@@ -159,6 +168,35 @@ def bound(flops: float, nbytes: float):
     return (max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes")
 
 
+# fp32 operations per (pixel, splat) pair of the compositor kernels, from
+# their code (composite_common.cuh): every pair a pixel examines in the
+# forward (offsets, power, gate, one exp); a pair that blends or stops
+# (the whole forward arithmetic); every pair the backward walks (offsets,
+# power, gate); and the rest of a pair that blended (exp, alpha, the ten
+# terms)
+OPS_EXAMINED, OPS_GATED, OPS_WALKED, OPS_BLENDED = 30.0, 40.0, 12.0, 45.0
+
+
+def fwd_bounds(examined: int, gated: int, nbytes: float) -> dict:
+    """A compositor forward's bounds: the row's, on the work the data needs
+    (the pairs that blend or stop), and the old designs' basis (every pair
+    examined)."""
+    b, by = bound(gated * OPS_GATED, nbytes)
+    b_e, by_e = bound(examined * OPS_EXAMINED, nbytes)
+    return dict(bound_ms=b, bound_by=by, bound_ms_examined=b_e,
+                bound_by_examined=by_e)
+
+
+def bwd_bounds(walked: int, blended: int, nbytes: float) -> dict:
+    """A compositor backward's bounds: the row's, on the pairs that blended
+    (the whole per-pair arithmetic), and the old designs' basis (every
+    pair walked, the blended ones' rest on top)."""
+    b, by = bound(blended * (OPS_WALKED + OPS_BLENDED), nbytes)
+    b_w, by_w = bound(walked * OPS_WALKED + blended * OPS_BLENDED, nbytes)
+    return dict(bound_ms=b, bound_by=by, bound_ms_walked=b_w,
+                bound_by_walked=by_w)
+
+
 # K4a/K4b geometries: the rasterizer ablation's (scripts/profile_raster.py:
 # 1200x680 in 16x16 tiles, 75 x 43 = 3,225 tiles, K 256) and the kernel
 # smoke's (scripts/tpu_kernel_smoke.py: 48 tiles in rows of 8, K 128):
@@ -171,6 +209,39 @@ DENSE_GEOMETRIES = {
 }
 DENSE_KERNELS = ("composite_dense_fwd", "composite_dense_bwd",
                  "composite_dyn_fwd", "composite_dyn_bwd")
+
+
+def path_configs(seq, synthetic_config):
+    """Paths A and B's configurations of the synthetic sequence seq:
+    downsample 10, map capacity 2^18, target 2^16, visible cap 2^16,
+    keyframe store 64; A without mapping, B with bench.py's mapping
+    settings (2 iterations a frame, init opacity 0.5, feature lr 1e-2)."""
+    base = synthetic_config(seq.intr, downsample_rate=10, capacity=1 << 18,
+                            target_capacity=1 << 16, visible_capacity=1 << 16)
+    cfg_a = base.replace(engine=dataclasses.replace(
+        base.engine, mapping_iters_per_frame=0, mapping_iters_final=0,
+        keyframe_capacity=64))
+    cfg_b = cfg_a.replace(
+        engine=dataclasses.replace(cfg_a.engine,
+                                   mapping_iters_per_frame=MAPPING_ITERS),
+        map=dataclasses.replace(cfg_a.map, init_opacity=0.5),
+        opt=dataclasses.replace(cfg_a.opt, feature_lr=1e-2))
+    return cfg_a, cfg_b
+
+
+def dense_case(key: str):
+    """Path D's inputs of one DENSE_GEOMETRIES entry: numpy counts and
+    attrs (dense_inputs, seeded by the entry's place) and the torch
+    gradient of out (seeded 3, rows 5-7 zero)."""
+    import torch
+
+    T, ntx, K, _ = DENSE_GEOMETRIES[key]
+    seed = list(DENSE_GEOMETRIES).index(key) + 1
+    counts_np, attrs_np = dense_inputs(T, ntx, DENSE_TILE, K, seed=seed)
+    g = torch.randn((T, 8, DENSE_TILE ** 2),
+                    generator=torch.Generator().manual_seed(3))
+    g[:, 5:] = 0.0
+    return counts_np, attrs_np, g
 
 
 def dense_inputs(T, ntx, tile, K, seed):
@@ -225,103 +296,248 @@ def oracle_rgb(a, count, t, ntx, tile):
     return rgb
 
 
-def dense_kernel_phases(dense, launches_d, composite_cuda, problems):
-    """K4a/K4b forward and backward against their plain versions (and the
-    forward against the numpy oracle) on path D's inputs; timed beside
-    their bounds.  Returns the four "kernels" entries."""
+def k4_view_inputs(eng, res, cfg, bin_splats, K=256, frame=18):
+    """K4's real-view geometry: path B's map seen from frame `frame`'s
+    estimated pose (the view of the K1-fwd phase), binned at 16-pixel
+    tiles by the port's rasterizer, each tile's run packed front to back
+    into a dense (T, 16, K) block; counts = the run lengths clipped at K,
+    slots past a run zero (opacity 0).  Returns (counts, attrs, ntx, the
+    runs clipped, the longest run)."""
+    import torch
+
+    m, rc, intr = eng.gmap, cfg.render, cfg.intr
+    dev = m.xyz.device
+    w2c = torch.linalg.inv(torch.as_tensor(res.poses[frame],
+                                           dtype=torch.float32, device=dev))
+    sh = torch.cat([m.f_dc[:, None, :], m.f_rest], dim=1)
+    span = rc.tile_span * rc.tile_size // DENSE_TILE
+    bn = bin_splats(m.xyz, m.rotation, torch.exp(m.log_scaling),
+                    torch.sigmoid(m.opacity_logit[:, 0]), sh, w2c, m.live,
+                    intr.fx, intr.fy, (intr.width - 1) / 2.0,
+                    (intr.height - 1) / 2.0, sh_degree=cfg.map.sh_degree,
+                    width=intr.width, height=intr.height, tile=DENSE_TILE,
+                    visible_cap=rc.visible_capacity, tile_span=span,
+                    tile_cap=rc.max_per_tile)
+    T = bn.counts.shape[0]
+    counts = torch.clamp(bn.counts, max=K).to(torch.int32)
+    rank = torch.arange(K, device=dev)
+    have = rank[None] < counts[:, None]
+    rows = torch.where(have, bn.starts[:, None].long() + rank[None], 0)
+    cols = torch.where(have, bn.pair_slot[rows].long(), 0)
+    attrs = torch.zeros((T, 16, K), dtype=torch.float32, device=dev)
+    attrs[:, :10] = torch.where(have[None], bn.attr_v[:10][:, cols],
+                                0.0).permute(1, 0, 2)
+    ntx = -(-intr.width // DENSE_TILE)
+    return (counts.contiguous(), attrs.contiguous(), ntx,
+            int((bn.counts > K).sum()), int(bn.counts.max()))
+
+
+def dense_checks(name, c, attrs, g, ntx, composite_cuda, problems,
+                 grad=None, counts_np=None, oracle_tiles=7):
+    """K4a (c None) or K4b on one geometry: the forward bit-equal to its
+    plain version, its counting call too, with evaluated + culled equal to
+    the plain cull model's examined pairs and no pair lost; the numpy
+    oracle on a few tiles; the backward within TOL_BWD_ROW of its plain
+    version, equal bits on two launches (and to the entry point's
+    gradient, grad), its (warp, rank) counts equal to the plain model's.
+    Returns the forward's and backward's numbers for a row."""
     import numpy as np
     import torch
 
+    args = (c, attrs, ntx, DENSE_TILE)
+    out, nc = composite_cuda.composite_dense_fwd(*args)
+    out0, nc0 = composite_cuda.composite_dense_fwd_plain(*args)
+    oc, ncc, st_f = composite_cuda.composite_dense_fwd_counts(*args)
+    _, _, model = composite_cuda.composite_dense_fwd_cull_plain(*args)
+    torch.cuda.synchronize()
+    err_f = float((out - out0).abs().max()) if out.numel() else 0.0
+    if not (torch.equal(out, out0) and torch.equal(nc, nc0)):
+        problems.append(f"{name} fwd: n_contrib differs at "
+                        f"{int((nc != nc0).sum())} pixels, max |dout| "
+                        f"{err_f} (tolerance: exact)")
+    if not (torch.equal(oc, out0) and torch.equal(ncc, nc0)):
+        problems.append(f"{name} fwd: the counting call differs from the "
+                        "plain version")
+    if (st_f["evaluated"] + st_f["culled"] != model["examined"]
+            or model["lost"]):
+        problems.append(f"{name} fwd: the kernel evaluated "
+                        f"{st_f['evaluated']} and culled {st_f['culled']} "
+                        f"pairs, the plain version examines "
+                        f"{model['examined']}; the plain cull loses "
+                        f"{model['lost']}")
+    outs, an = out.cpu().numpy(), attrs.cpu().numpy()
+    T, K = attrs.shape[0], attrs.shape[2]
+    for t in range(0, T, max(1, T // oracle_tiles)):
+        cnt = K if c is None else min(max(int(counts_np[t]), 0), K)
+        err_o = float(np.abs(outs[t, 0:3] - oracle_rgb(
+            an[t], cnt, t, ntx, DENSE_TILE)).max())
+        if not err_o <= TOL_ORACLE:
+            problems.append(f"{name} tile {t}: oracle mismatch {err_o}")
+    bargs = (c, attrs, out, nc, g, ntx, DENSE_TILE)
+    g1 = composite_cuda.composite_dense_bwd(*bargs)
+    g2, st_b = composite_cuda.composite_dense_bwd_counts(*bargs)
+    g0 = composite_cuda.composite_dense_bwd_plain(*bargs)
+    ranks = composite_cuda.composite_dense_bwd_ranks_plain(c, attrs, nc, ntx,
+                                                           DENSE_TILE)
+    torch.cuda.synchronize()
+    scale = g0[:, :10].abs().amax((0, 2)).clamp(min=1e-30)
+    row_err = ((g1[:, :10] - g0[:, :10]).abs().amax((0, 2)) / scale).tolist()
+    if not max(row_err) <= TOL_BWD_ROW:
+        problems.append(f"{name} bwd: row errors {row_err} > {TOL_BWD_ROW}")
+    if not torch.equal(g1, g2) or (grad is not None
+                                   and not torch.equal(g1, grad)):
+        problems.append(f"{name} bwd: two launches (or the entry point's "
+                        "gradient) gave different bits")
+    if st_b != ranks:
+        problems.append(f"{name} bwd: the kernel walked/culled {st_b} "
+                        f"(warp, rank) pairs, the plain model {ranks}")
+    return dict(out=out, nc=nc, fwd_err=err_f, model=model, st_f=st_f,
+                bwd_err=float((g1 - g0).abs().max()), row_err=row_err,
+                st_b=st_b, deterministic=bool(torch.equal(g1, g2)))
+
+
+def dense_times(c, attrs, g, ntx, chk, composite_cuda):
+    """Times and bounds of K4a (c None) or K4b forward and backward on one
+    geometry (dense_checks' results chk), CUDA events."""
+    import torch
+
+    T, _, K = attrs.shape
+    P = DENSE_TILE ** 2
+    args = (c, attrs, ntx, DENSE_TILE)
+    bargs = (c, attrs, chk["out"], chk["nc"], g, ntx, DENSE_TILE)
+    cnt = (torch.full((T,), K, device=attrs.device) if c is None
+           else c.long().clamp(0, K))
+    model = chk["model"]
+    # rows 0-9 of the slots composited (and the counts) read, the output
+    # and n_contrib written
+    nbytes = (T * 4 * (c is not None) + int(cnt.sum()) * 10 * 4
+              + T * 8 * P * 4 + T * P * 4)
+    fwd = dict(ms=time_ms(lambda: composite_cuda.composite_dense_fwd(*args)),
+               **fwd_bounds(model["examined"], model["gated"], nbytes),
+               max_abs_err=chk["fwd_err"], pairs_examined=model["examined"],
+               pairs_gated=model["gated"],
+               pairs_evaluated=chk["st_f"]["evaluated"],
+               pairs_culled=chk["st_f"]["culled"])
+    walked, blended = composite_cuda.composite_dense_bwd_work(*bargs)
+    cells = int(torch.minimum(chk["nc"].amax(1), cnt).sum())
+    # rows 0-9 of the walked slots; t_final, n_contrib and g rows 0-4
+    # read; the whole (T, 16, K) gradient written
+    nbytes = cells * 10 * 4 + T * P * 4 * 7 + T * 16 * K * 4
+    bwd = dict(ms=time_ms(lambda: composite_cuda.composite_dense_bwd(
+                   *bargs)),
+               **bwd_bounds(walked, blended, nbytes),
+               max_abs_err=chk["bwd_err"], row_err_vs_row_max=chk["row_err"],
+               deterministic=chk["deterministic"], pairs_walked=walked,
+               pairs_blended=blended, cells_walked=cells,
+               warp_ranks_walked=chk["st_b"]["walked"],
+               warp_ranks_culled=chk["st_b"]["culled"])
+    fwd["plain_ms"] = time_ms(
+        lambda: composite_cuda.composite_dense_fwd_plain(*args), reps=2,
+        warmup=1)
+    bwd["plain_ms"] = time_ms(
+        lambda: composite_cuda.composite_dense_bwd_plain(*bargs), reps=2,
+        warmup=1)
+    return fwd, bwd
+
+
+def dense_kernel_phases(dense, view, launches_d, composite_cuda, problems):
+    """K4a/K4b forward and backward against their plain versions (and the
+    forward against the numpy oracle) on path D's inputs and on K4_view;
+    timed beside their bounds.  Returns the four "kernels" entries."""
     rows = []
     for kind, key, line_fwd, line_bwd in (
             ("dense", "K4a_ablation", 101, 114),
             ("dyn", "K4b_ablation", 247, 289)):
-        for d in (dense[key], dense["K4b_smoke"]) if kind == "dyn" else (
-                dense[key],):
+        main = None
+        for gname in (key, "K4b_smoke") if kind == "dyn" else (key,):
+            d = dense[gname]
             c = d["counts"] if d["dyn"] else None
-            args = (c, d["attrs"], d["ntx"], DENSE_TILE)
-            out, nc = composite_cuda.composite_dense_fwd(*args)
-            out0, nc0 = composite_cuda.composite_dense_fwd_plain(*args)
-            torch.cuda.synchronize()
-            err_f = max(float((out[:, [0, 1, 2, 4]] - out0[:, [0, 1, 2, 4]])
-                              .abs().max()),
-                        float((out[:, 3] - out0[:, 3]).abs().max())
-                        / max(float(out0[:, 3].abs().max()), 1.0))
-            if not torch.equal(nc, nc0) or err_f > 1e-4:
-                problems.append(f"{key if d is dense[key] else 'K4b_smoke'} "
-                                f"fwd: max error {err_f}, n_contrib differs "
-                                f"at {int((nc != nc0).sum())} pixels")
-            outs = out.cpu().numpy()
-            for t in range(0, d["T"], max(1, d["T"] // 7)):
-                cnt = int(d["counts_np"][t]) if d["dyn"] else d["K"]
-                err_o = float(np.abs(outs[t, 0:3] - oracle_rgb(
-                    d["attrs_np"][t], cnt, t, d["ntx"], DENSE_TILE)).max())
-                if not err_o <= TOL_ORACLE:
-                    problems.append(f"{kind} tile {t}: oracle mismatch "
-                                    f"{err_o}")
-            bargs = (c, d["attrs"], out, nc, d["g"], d["ntx"], DENSE_TILE)
-            g1 = composite_cuda.composite_dense_bwd(*bargs)
-            g0 = composite_cuda.composite_dense_bwd_plain(*bargs)
-            torch.cuda.synchronize()
-            scale = g0[:, :10].abs().amax((0, 2)).clamp(min=1e-30)
-            row_err = ((g1[:, :10] - g0[:, :10]).abs().amax((0, 2))
-                       / scale).tolist()
-            if not max(row_err) <= TOL_BWD_ROW or not torch.equal(
-                    g1, d["grad"]):
-                problems.append(f"{kind} bwd: row errors {row_err} > "
-                                f"{TOL_BWD_ROW}, or the entry point's "
-                                "gradient differs from the kernel's")
-        d = dense[key]
-        c = d["counts"] if d["dyn"] else None
-        T, K = d["T"], d["K"]
-        P = DENSE_TILE ** 2
-        args = (c, d["attrs"], d["ntx"], DENSE_TILE)
-        out, nc = composite_cuda.composite_dense_fwd(*args)
-        cnt = d["counts_np"].clip(0, K) if d["dyn"] else np.full(T, K)
-        examined = composite_cuda.composite_dense_work(*args)
-        # rows 0-9 of the slots composited (and the counts), the output
-        # and n_contrib written
-        nbytes = (T * 4 * d["dyn"] + int(cnt.sum()) * 10 * 4
-                  + T * 8 * P * 4 + T * P * 4)
-        b, by = bound(examined * 30.0, nbytes)
-        name = f"composite_{kind}_fwd"
-        rows.append(dict(
-            name=name, route="cuda",
-            source="gs_icp_slam_torch/csrc/composite_dense.cu",
-            replaces=f"gs_icp_slam_tpu/ops/composite_pallas.py:{line_fwd}",
-            launches=launches_d[name], max_abs_err=err_f,
-            ms=time_ms(lambda: composite_cuda.composite_dense_fwd(*args)),
-            plain_ms=time_ms(lambda: composite_cuda.composite_dense_fwd_plain(
-                *args), reps=2, warmup=1),
-            bound_ms=b, bound_by=by, library_ms=None, tiles=T, K=K,
-            pairs_examined=examined))
-        bargs = (c, d["attrs"], out, nc, d["g"], d["ntx"], DENSE_TILE)
-        walked, blended = composite_cuda.composite_dense_bwd_work(*bargs)
-        cells = int(torch.minimum(nc.amax(1), torch.as_tensor(
-            cnt, device=nc.device)).sum())
-        # rows 0-9 of the walked slots; t_final, n_contrib and g rows 0-4
-        # read; the whole (T, 16, K) gradient written
-        nbytes = cells * 10 * 4 + T * P * 4 * 7 + T * 16 * K * 4
-        b, by = bound(walked * 12.0 + blended * 45.0, nbytes)
-        name = f"composite_{kind}_bwd"
-        g1 = composite_cuda.composite_dense_bwd(*bargs)
-        g0 = composite_cuda.composite_dense_bwd_plain(*bargs)
-        torch.cuda.synchronize()
-        scale = g0[:, :10].abs().amax((0, 2)).clamp(min=1e-30)
-        rows.append(dict(
-            name=name, route="cuda",
-            source="gs_icp_slam_torch/csrc/composite_dense.cu",
-            replaces=f"gs_icp_slam_tpu/ops/composite_pallas.py:{line_bwd}",
-            launches=launches_d[name],
-            max_abs_err=float((g1 - g0).abs().max()),
-            row_err_vs_row_max=((g1[:, :10] - g0[:, :10]).abs().amax((0, 2))
-                                / scale).tolist(),
-            ms=time_ms(lambda: composite_cuda.composite_dense_bwd(*bargs)),
-            plain_ms=time_ms(lambda: composite_cuda.composite_dense_bwd_plain(
-                *bargs), reps=2, warmup=1),
-            bound_ms=b, bound_by=by, library_ms=None, tiles=T, K=K,
-            pairs_walked=walked, pairs_blended=blended, cells_walked=cells))
+            chk = dense_checks(gname, c, d["attrs"], d["g"], d["ntx"],
+                               composite_cuda, problems, grad=d["grad"],
+                               counts_np=d["counts_np"])
+            if gname == key:
+                main = (c, d, chk)
+        c, d, chk = main
+        fwd, bwd = dense_times(c, d["attrs"], d["g"], d["ntx"], chk,
+                               composite_cuda)
+        vc = view["counts"] if kind == "dyn" else None
+        vchk = dense_checks(f"K4_view {kind}", vc, view["attrs"], view["g"],
+                            view["ntx"], composite_cuda, problems,
+                            counts_np=view["counts_np"])
+        vfwd, vbwd = dense_times(vc, view["attrs"], view["g"], view["ntx"],
+                                 vchk, composite_cuda)
+        geo = dict(tiles=d["T"], K=d["K"])
+        vgeo = dict(tiles=view["attrs"].shape[0], K=view["attrs"].shape[2],
+                    runs_clipped=view["clipped"], longest_run=view["longest"])
+        for part, row, vrow, line in (("fwd", fwd, vfwd, line_fwd),
+                                      ("bwd", bwd, vbwd, line_bwd)):
+            name = f"composite_{kind}_{part}"
+            rows.append(dict(
+                name=name, route="cuda",
+                source="gs_icp_slam_torch/csrc/composite_dense.cu",
+                replaces=f"gs_icp_slam_tpu/ops/composite_pallas.py:{line}",
+                launches=launches_d[name], library_ms=None, **row, **geo,
+                k4_view=dict(**vrow, **vgeo)))
     return rows
+
+
+def big_reference_phase(nn_cuda, problems) -> dict:
+    """K2 and K3 above 2^20 references, where the kernels sort their chunks
+    a segment at a time and K3 orders the cloud over several blocks: a
+    random cube of 2^20 + 2^17 points, 30% of them invalid, searched by
+    4,096 queries (K2, target and queries in Morton order, as G-ICP's
+    are in space) and 2,048 (K3, k = 20) in the cube; exact against the plain versions, timed, with the
+    all-pairs bound.  Returns {"nn1": ..., "knn": ...}."""
+    import torch
+
+    from gs_icp_slam_torch.ops.gicp import spatial_order
+
+    dev = torch.device("cuda")
+    R = (1 << 20) + (1 << 17)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    ref = (torch.rand((R, 3), generator=gen) * 4 - 2).to(dev)
+    valid = (torch.rand(R, generator=gen) > 0.3).to(dev)
+    q = (torch.rand((4096, 3), generator=gen) * 4 - 2).to(dev)
+    nv = int(valid.sum())
+    rT, bias = nn_cuda.prepare_refs(ref, valid)
+    args = (q, rT, bias, spatial_order(rT, valid), nn_cuda.morton_order(q))
+    i1, d1 = nn_cuda.nn_search_pre(*args)
+    i0, d0 = nn_cuda.nn1_plain(q, rT, bias, q_chunk=256)
+    _, _, st = nn_cuda.nn1_search_counts(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(i1, i0) and torch.equal(d1, d0)):
+        problems.append(f"nn1 at {R} references: {int((i1 != i0).sum())} "
+                        "indices differ (tolerance: exact)")
+    b, by = bound(4096 * nv * 9.0, 4096 * 12 + R * 20 + 4096 * 8)
+    out = {"nn1": dict(
+        queries=4096, refs=R, valid_refs=nv,
+        max_abs_err=float((d1 - d0).abs().max()),
+        ms=time_ms(lambda: nn_cuda.nn_search_pre(*args)),
+        plain_ms=time_ms(lambda: nn_cuda.nn1_plain(q, rT, bias, q_chunk=256),
+                         reps=1, warmup=0),
+        bound_ms_all_pairs=b, bound_by_all_pairs=by,
+        chunks_culled=st["culled"], chunk_visits=st["visits"])}
+    qk, k = q[:2048].contiguous(), 20
+    i1, d1 = nn_cuda.knn_search_kernel(qk, ref, valid, k)
+    i0, d0 = nn_cuda.knn_plain(qk, ref, valid, k, q_chunk=64)
+    _, _, st = nn_cuda.knn_search_counts(qk, ref, valid, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(i1, i0) and torch.equal(d1, d0)):
+        problems.append(f"knn at {R} references: {int((i1 != i0).sum())} "
+                        "indices differ (tolerance: exact)")
+    b, by = bound(2048 * nv * 10.0, 2048 * 12 + R * 13 + 2048 * k * 8)
+    out["knn"] = dict(
+        queries=2048, refs=R, valid_refs=nv, k=k,
+        max_abs_err=float((d1 - d0).abs().max()),
+        ms=time_ms(lambda: nn_cuda.knn_search_kernel(qk, ref, valid, k)),
+        plain_ms=time_ms(lambda: nn_cuda.knn_plain(qk, ref, valid, k,
+                                                   q_chunk=64),
+                         reps=1, warmup=0),
+        bound_ms_all_pairs=b, bound_by_all_pairs=by,
+        chunks_culled=st["culled"], chunk_visits=st["visits"])
+    print(json.dumps({"phase": "nn1 and knn above 2^20 references", **out}),
+          flush=True)
+    return out
 
 
 def run_path_c(seq, cfg, FusedEngine, RecordedDraws, cuda_build, problems):
@@ -479,16 +695,7 @@ def main() -> None:
     # set-up rather than the engine's time
     seq = InMemorySequence(open_dataset("synthetic", width=WIDTH,
                                         height=HEIGHT, num_frames=FRAMES))
-    base = synthetic_config(seq.intr, downsample_rate=10, capacity=1 << 18,
-                            target_capacity=1 << 16, visible_capacity=1 << 16)
-    cfg_a = base.replace(engine=dataclasses.replace(
-        base.engine, mapping_iters_per_frame=0, mapping_iters_final=0,
-        keyframe_capacity=64))
-    cfg_b = cfg_a.replace(
-        engine=dataclasses.replace(cfg_a.engine,
-                                   mapping_iters_per_frame=MAPPING_ITERS),
-        map=dataclasses.replace(cfg_a.map, init_opacity=0.5),
-        opt=dataclasses.replace(cfg_a.opt, feature_lr=1e-2))
+    cfg_a, cfg_b = path_configs(seq, synthetic_config)
     problems = []
 
     def run_path(name, cfg, ref, kernels_of_path):
@@ -550,13 +757,10 @@ def main() -> None:
     dense = {}
     cuda_build.reset_launch_counts()
     for key, (T_, ntx_, K_, dyn) in DENSE_GEOMETRIES.items():
-        counts_np, attrs_np = dense_inputs(T_, ntx_, DENSE_TILE, K_,
-                                           seed=len(dense) + 1)
+        counts_np, attrs_np, g_t = dense_case(key)
         counts_t = torch.as_tensor(counts_np, device="cuda")
         attrs_t = torch.as_tensor(attrs_np, device="cuda")
-        g_t = torch.randn((T_, 8, DENSE_TILE ** 2), generator=torch.Generator(
-            ).manual_seed(3)).to("cuda")
-        g_t[:, 5:] = 0.0
+        g_t = g_t.to("cuda")
         a_leaf = attrs_t.clone().requires_grad_(True)
         if dyn:
             out_t = composite_cuda.make_composite_dyn(
@@ -690,6 +894,7 @@ def main() -> None:
     knn = {}
     for case, k, cloud, ok in (("frame0", 20, pts, trk),
                                ("frame0", 4, pts, trk),
+                               ("frame0", 40, pts, trk),
                                ("cube", 20, cube, cube_valid)):
         i1, d1 = nn_cuda.knn_search_kernel(cloud, cloud, ok, k)
         i0, d0 = nn_cuda.knn_plain(cloud, cloud, ok, k)
@@ -734,13 +939,21 @@ def main() -> None:
         print(json.dumps({"phase": f"knn {case} k={k}", **knn[(case, k)]}),
               flush=True)
     # the main path's call (frame 0, k = 20) is the row; k = 4
-    # (mean_sq_dist_3nn) and the random cube ride along under their keys
+    # (mean_sq_dist_3nn), k = 40 (two passes) and the random cube ride
+    # along under their keys
     kernels.append(dict(
         name="knn", route="cuda", source="gs_icp_slam_torch/csrc/knn.cu",
         replaces="gs_icp_slam_tpu/ops/nn_pallas.py:113",
         launches=launches_c["knn"], launches_path_a=launches_a["knn"],
         launches_path_b=launches_b["knn"], **knn[("frame0", 20)],
-        k4=knn[("frame0", 4)], random_cube=knn[("cube", 20)]))
+        k4=knn[("frame0", 4)], k40=knn[("frame0", 40)],
+        random_cube=knn[("cube", 20)]))
+
+    # K2 and K3 above 2^20 references, nested under their rows
+    big = big_reference_phase(nn_cuda, problems)
+    for row in kernels:
+        if row["name"] in big:
+            row["above_2_20_refs"] = big[row["name"]]
 
     # K1-fwd on the compositor inputs of a real 1200x680 view of path B's
     # mapped map (frame 18's estimated pose)
@@ -782,12 +995,9 @@ def main() -> None:
     P = rc.tile_size ** 2
     nbytes = (T * 8 + int(bn.counts.sum()) * 4 + bn.attr_v.numel() * 4
               + T * 8 * P * 4)
-    # two bases: the pairs that blend or stop at ~40 operations (the whole
-    # per-pair arithmetic), the only ones whose work cannot be skipped, the
-    # row's bound; and every pair the plain version examines at ~30
-    # (offsets, power, gate, one exp), the work of the old design
-    b_e, by_e = bound(examined * 30.0, nbytes)
-    b, by = bound(gated * 40.0, nbytes)
+    # two bases: the pairs that blend or stop, the only ones whose work
+    # cannot be skipped, the row's bound; and every pair the plain version
+    # examines, the work of the old design
     kernels.append(dict(
         name="composite_fwd", route="cuda",
         source="gs_icp_slam_torch/csrc/composite_fwd.cu",
@@ -798,8 +1008,7 @@ def main() -> None:
         ms=time_ms(lambda: composite_cuda.composite_fwd(*cargs)),
         plain_ms=time_ms(lambda: composite_cuda.composite_fwd_plain(*cargs),
                          reps=2, warmup=1),
-        bound_ms=b, bound_by=by, library_ms=None,
-        bound_ms_examined=b_e, bound_by_examined=by_e,
+        library_ms=None, **fwd_bounds(examined, gated, nbytes),
         pairs_examined=examined, pairs_gated=gated,
         pairs_evaluated=st_f["evaluated"], pairs_culled=st_f["culled"],
         pairs_culled_plain_model=model["culled"],
@@ -854,9 +1063,6 @@ def main() -> None:
               + rows_b.numel() * 4             # the splat -> pair-row map
               + 2 * cell_bytes                 # cells written and read
               + attr_b.numel() * 4)            # the gradient written
-    # from the kernel's code: ~12 operations per walked pair (offsets,
-    # power, gate), ~45 more per blended pair (exp, alpha, the ten terms)
-    b, by = bound(walked * 12.0 + blended * 45.0, nbytes)
     kernels.append(dict(
         name="composite_bwd", route="cuda",
         source="gs_icp_slam_torch/csrc/composite_bwd.cu",
@@ -869,12 +1075,26 @@ def main() -> None:
         ms=time_ms(lambda: composite_cuda.composite_bwd(*bargs)),
         plain_ms=time_ms(lambda: composite_cuda.composite_bwd_plain(*pargs),
                          reps=2, warmup=1),
-        bound_ms=b, bound_by=by, library_ms=None, pairs_walked=walked,
-        pairs_blended=blended, cells_walked=cells, bound_bytes=nbytes,
+        library_ms=None, **bwd_bounds(walked, blended, nbytes),
+        pairs_walked=walked, pairs_blended=blended, cells_walked=cells,
+        bound_bytes=nbytes,
         cell_bytes=cell_bytes, run_rows=int(counts_b.sum()),
         max_n_contrib=int(nc_b.max())))
 
-    kernels += dense_kernel_phases(dense, launches_d, composite_cuda,
+    # K4 on a real view: path B's frame-18 view binned at 16-pixel tiles,
+    # the runs packed into dense blocks of 256
+    vc, va, vntx, clipped, longest = k4_view_inputs(eng, res, cfg_b,
+                                                    bin_splats)
+    g_v = torch.randn((va.shape[0], 8, DENSE_TILE ** 2),
+                      generator=torch.Generator().manual_seed(4)).to(dev)
+    g_v[:, 5:] = 0.0
+    view = dict(counts=vc, attrs=va, ntx=vntx, g=g_v,
+                counts_np=vc.cpu().numpy(), clipped=clipped, longest=longest)
+    print(json.dumps({"phase": "K4_view", "tiles": va.shape[0],
+                      "K": va.shape[2], "runs_clipped_at_K": clipped,
+                      "longest_run": longest,
+                      "mean_count": float(vc.float().mean())}), flush=True)
+    kernels += dense_kernel_phases(dense, view, launches_d, composite_cuda,
                                    problems)
 
     if problems:

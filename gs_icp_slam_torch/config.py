@@ -67,7 +67,7 @@ class MapConfig:
     prune_min_opacity: float = 0.005
     prune_extent: float = 2.5
     trackable_opacity_th: float = 0.05
-    densify_enabled: bool = False
+    densify_enabled: bool = False  # read by no engine, as in the reference
     densify_grad_threshold: float = 2e-4
     percent_dense: float = 0.01
 

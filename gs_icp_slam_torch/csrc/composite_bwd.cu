@@ -27,13 +27,14 @@
 // buffer and the gradient: chip_smoke.py counts both from a real view.
 //
 // Design, two launches:
-//  1. composite_bwd_walk: one block per side x side corner of a tile
+//  1. composite_bwd_walk, gs::bwd_tile (composite_tile.cuh, shared with
+//     K4's backward): one block per side x side corner of a tile
 //     (side = 16 at the 32-pixel tiles of the mapping path, so four blocks
 //     a tile and four times as many blocks as tiles for the 132 SMs; the
 //     whole tile when tile <= 16), one thread per pixel, a warp on an 8x4
 //     patch of pixels (its pixels stop near the same rank and blend the
 //     same splats more often than a row of 16x2 does).  The tile's run is
-//     streamed backwards through shared memory in batches of kBatch
+//     streamed backwards through shared memory in batches of kBwdBatch
 //     splats, from the block's largest n_contrib down to rank 0, with
 //     barriers only at batch boundaries.  Inside a batch each warp starts
 //     at its own largest n_contrib (__reduce_max_sync) and skips every
@@ -42,9 +43,9 @@
 //     most ranks a warp reaches blend on none of its lanes).  Inside a
 //     walked rank, a pixel whose power falls below the splat's pmin skips
 //     the exp (see PackedSplat in composite_common.cuh).  For each rank a
-//     warp walks, __ballot_sync tells how
-//     many lanes blended: none (ten zeros), one (that lane's terms are the
-//     sums, no shuffle) or more (a transposing reduce-scatter: each
+//     warp walks, __ballot_sync tells how many lanes blended: none (ten
+//     zeros), one (that lane's terms are the sums, no shuffle) or more (a
+//     transposing reduce-scatter: each
 //     halving step sends half of what a lane still holds, 12 shuffles for
 //     the ten terms instead of 50 for ten butterflies).  The warp's ten
 //     sums go to per-warp partials, s_part[warp][term][rank], with plain
@@ -65,58 +66,22 @@
 // power and alpha round as they did there and every gate decision
 // repeats; the per-pair arithmetic is shared with K1-fwd and K4
 // (composite_common.cuh).
-#include "common.cuh"
-#include "composite_common.cuh"
+#include "composite_tile.cuh"
 
 namespace {
 
-constexpr int kBatch = 128;          // ranks staged per batch
-constexpr int kStride = kBatch + 1;  // s_part row, padded: lanes of one
-                                     // rank store to distinct banks
-constexpr int kMaxWarps = 32;
-constexpr unsigned kAll = 0xffffffffu;
 using gs::kTerms;
 
-// The warp's sum of each of the ten terms v[0..9], scattered over the
-// lanes: lane l gets the sum of term scatter_term(l) (the lanes of an
-// even/odd pair get the same bits).  Step 1 (xor 16) keeps terms
-// 5*b4 + [0, 5), step 2 (xor 8) 3*b3 + [0, 3) of those, step 3 (xor 4)
-// 2*b2 + [0, 2), step 4 (xor 2) one, step 5 (xor 1) adds the pair;
-// odd counts are padded with a zero.  5 + 3 + 2 + 1 + 1 = 12 shuffles.
-__device__ __forceinline__ float reduce_scatter10(const float (&v)[kTerms],
-                                                  int lane) {
-  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
-  float a[5];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const float lo = v[i], hi = v[i + 5];
-    a[i] = (b4 ? hi : lo) + __shfl_xor_sync(kAll, b4 ? lo : hi, 16);
+// K1's sums: cell (row, corner, term) at ((row * nsub + sub) * 10 + term),
+// row = start + rank; cell_t is the corner's cell of row start.
+struct CellSink {
+  float* cell_t;
+  int nsub;
+  static constexpr bool kTermMajor = false;
+  __device__ __forceinline__ void operator()(int j, int c, float v) const {
+    cell_t[static_cast<size_t>(j) * nsub * kTerms + c] = v;
   }
-  float b[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float lo = a[i], hi = i + 3 < 5 ? a[i + 3] : 0.f;
-    b[i] = (b3 ? hi : lo) + __shfl_xor_sync(kAll, b3 ? lo : hi, 8);
-  }
-  float c[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float lo = b[i], hi = i + 2 < 3 ? b[i + 2] : 0.f;
-    c[i] = (b2 ? hi : lo) + __shfl_xor_sync(kAll, b2 ? lo : hi, 4);
-  }
-  const float d =
-      (b1 ? c[1] : c[0]) + __shfl_xor_sync(kAll, b1 ? c[0] : c[1], 2);
-  return d + __shfl_xor_sync(kAll, d, 1);
-}
-
-// The term whose sum reduce_scatter10 leaves on this lane; -1 for odd
-// lanes (their even neighbour stores) and for lanes that hold padding.
-__device__ __forceinline__ int scatter_term(int lane) {
-  const int ib = 2 * ((lane >> 2) & 1) + ((lane >> 1) & 1);  // in step 2's 3
-  const int ia = 3 * ((lane >> 3) & 1) + ib;                 // in step 1's 5
-  return ((lane & 1) || ib >= 3 || ia >= 5) ? -1
-                                            : 5 * ((lane >> 4) & 1) + ia;
-}
+};
 
 __global__ void __launch_bounds__(1024)
 composite_bwd_walk(const int* __restrict__ counts,
@@ -127,121 +92,19 @@ composite_bwd_walk(const int* __restrict__ counts,
                    const int* __restrict__ n_contrib,
                    const float* __restrict__ g, float* __restrict__ cell) {
   extern __shared__ float4 s_dyn[];
-  gs::PackedSplat* s_splat = reinterpret_cast<gs::PackedSplat*>(s_dyn);
-  float* s_part = reinterpret_cast<float*>(s_splat + kBatch);
-  __shared__ int s_wwalk[kMaxWarps];
-  __shared__ unsigned s_wmask[kMaxWarps][kBatch / 32];  // ranks walked
   const int nsx = (tile + side - 1) / side;
   const int nsub = nsx * nsx;
   const int t = blockIdx.x / nsub;
   const int sub = blockIdx.x - t * nsub;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int2 xy = gs::corner_pixel(tid, side, sub, nsx);
-  const int x = xy.x, y = xy.y;
-  const bool pixel = tid < side * side && x < tile && y < tile;
-  const int P = tile * tile;
-  const int pid = y * tile + x;
-  const float px = static_cast<float>((t % ntx) * tile + x);
-  const float py = static_cast<float>((t / ntx) * tile + y);
   const int count = counts[t];
   const int start = starts[t];
-  const size_t base = static_cast<size_t>(t) * 8 * P + pid;
-
-  const int nc = pixel ? n_contrib[static_cast<size_t>(t) * P + pid] : 0;
-  gs::BwdPixel p{1.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (pixel) {
-    p.tr = out[base + 4 * P];
-    p.g_r = g[base];
-    p.g_g = g[base + 1 * P];
-    p.g_b = g[base + 2 * P];
-    p.g_d = g[base + 3 * P];
-    p.gtf_tf = g[base + 4 * P] * p.tr;
-  }
-  // the warp's pixel rectangle, for the per-splat cull
-  const float xlo = gs::warp_min(pixel ? px : INFINITY);
-  const float xhi = gs::warp_max(pixel ? px : -INFINITY);
-  const float ylo = gs::warp_min(pixel ? py : INFINITY);
-  const float yhi = gs::warp_max(pixel ? py : -INFINITY);
-  const int wwalk = __reduce_max_sync(kAll, nc);
-  if (lane == 0) s_wwalk[warp] = wwalk;
-  __syncthreads();
-  int walk = 0;
-  for (int w = 0; w < nwarps; ++w) walk = max(walk, s_wwalk[w]);
-  walk = min(walk, count);
-  // this corner's cells: (row, corner, term) at ((row * nsub + sub) * 10
-  // + term), row = start + rank
   float* cell_t = cell + (static_cast<size_t>(start) * nsub + sub) * kTerms;
-  float* part = s_part + warp * kTerms * kStride;
-
-  for (int b0 = ((walk - 1) / kBatch) * kBatch; walk > 0 && b0 >= 0;
-       b0 -= kBatch) {
-    const int n = min(kBatch, walk - b0);
-    __syncthreads();  // the previous batch's partials have been read
-    for (int j = tid; j < n; j += blockDim.x) {
-      s_splat[j] = gs::load_packed(attr, Vp, pair_slot[start + b0 + j]);
-    }
-    __syncthreads();
-    // the ranks this warp walks: below its own largest n_contrib, and not
-    // culled for its rectangle (one bit each, kept for the sum below)
-    const int top = min(n, wwalk - b0);
-    unsigned walked[kBatch / 32];
-#pragma unroll
-    for (int q = 0; q < kBatch / 32; ++q) {
-      const int j = q * 32 + lane;
-      walked[q] = __ballot_sync(
-          kAll,
-          j < top && !gs::patch_culled(s_splat[j], xlo, xhi, ylo, yhi));
-      if (lane == 0) s_wmask[warp][q] = walked[q];
-    }
-#pragma unroll
-    for (int q = kBatch / 32 - 1; q >= 0; --q) {
-      for (unsigned bits = walked[q]; bits != 0u;) {
-        const int jb = 31 - __clz(bits);
-        bits &= ~(1u << jb);
-        const int j = q * 32 + jb;  // ranks in decreasing order
-        float v[kTerms];
-#pragma unroll
-        for (int c = 0; c < kTerms; ++c) v[c] = 0.f;
-        bool blended = false;
-        if (b0 + j < nc) {
-          const gs::Splat sp = gs::unpack(s_splat[j]);
-          if (!(gs::splat_power(sp, px - sp.mx, py - sp.my) <
-                s_splat[j].c.z))
-            blended = gs::bwd_pair(p, px, py, sp, v);
-        }
-        const unsigned m = __ballot_sync(kAll, blended);
-        if (m == 0u) {
-          if (lane < kTerms) part[lane * kStride + j] = 0.f;
-        } else if ((m & (m - 1u)) == 0u) {
-          if (blended) {
-#pragma unroll
-            for (int c = 0; c < kTerms; ++c) part[c * kStride + j] = v[c];
-          }
-        } else {
-          const float s = reduce_scatter10(v, lane);
-          const int c = scatter_term(lane);
-          if (c >= 0) part[c * kStride + j] = s;
-        }
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < kTerms * n; i += blockDim.x) {
-      const int j = i / kTerms;
-      const int c = i - j * kTerms;
-      float sum = 0.f;
-      for (int w = 0; w < nwarps; ++w) {
-        if ((s_wmask[w][j >> 5] >> (j & 31)) & 1u)
-          sum = sum + s_part[(w * kTerms + c) * kStride + j];
-      }
-      cell_t[static_cast<size_t>(b0 + j) * nsub * kTerms + c] = sum;
-    }
-  }
+  const int walk = gs::bwd_tile<false>(
+      gs::PairRun{pair_slot, attr, Vp, start, count}, CellSink{cell_t, nsub},
+      t, sub, nsx, ntx, tile, side, out, n_contrib, g, s_dyn, nullptr);
   // ranks [walk, count): no pixel of this corner reached them
   const int rest = count - walk;
-  for (int i = tid; i < kTerms * rest; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kTerms * rest; i += blockDim.x) {
     const int j = i / kTerms;
     cell_t[static_cast<size_t>(walk + j) * nsub * kTerms + (i - j * kTerms)] =
         0.f;
@@ -295,9 +158,7 @@ extern "C" int composite_bwd_launch(const int* counts, const int* starts,
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = (side * side + 31) / 32 * 32;
   const int nsx = (tile + side - 1) / side;
-  const int smem = static_cast<int>(kBatch * sizeof(gs::PackedSplat)) +
-                   threads / 32 * kTerms * kStride *
-                       static_cast<int>(sizeof(float));
+  const int smem = gs::bwd_smem(threads);
   if (T > 0) {
     cudaError_t err = cudaSuccess;
     if (smem > 48 * 1024)  // above the default: blocks of more than 8 warps

@@ -74,10 +74,12 @@ __device__ __forceinline__ Splat unpack(const PackedSplat& s) {
 // 1e4, so that the power the kernels compute is within ~1e-2 of
 // -0.5 d'Ad relative to lam |d|^2, and the bound is shrunk by 2% and an
 // absolute 0.01 (on top of pmin's own margin).  Any other conic (not
-// positive definite, ill-conditioned, NaN) culls nothing.
+// positive definite, ill-conditioned, NaN) culls nothing, unless pmin is
+// +inf (opacity <= 0 or NaN: the gate refuses every pixel).
 __device__ __forceinline__ bool patch_culled(const PackedSplat& s, float xlo,
                                              float xhi, float ylo,
                                              float yhi) {
+  if (!(s.c.z < INFINITY)) return true;
   const float a = s.a.z, b = s.a.w, c = s.b.x;
   if (!(a > 0.f && c > 0.f)) return false;
   const float det = a * c - b * b, tr = a + c;

@@ -24,189 +24,164 @@
 // 1e-4 stops the pixel) and the same per-pair arithmetic
 // (composite_common.cuh, built with -fmad=false).
 //
-// What bounds it on the H100: arithmetic on the (pixel, splat) pairs each
-// pixel examines (forward, ~30 fp32 operations each) or walks (backward,
-// ~12 each plus ~45 for each pair that blended); the bytes are the dense
-// blocks, 64 K bytes a tile each way.  chip_smoke.py counts both from the
-// inputs it times.
+// What bounds it on the H100: the forward needs the whole arithmetic only
+// for the pairs that blend or stop (~40 fp32 operations each); every
+// other pair a pixel meets lies outside the splat's footprint, where a
+// cull can skip it.  The backward needs ~57 operations for each pair that
+// blended.  Against that, the bytes: rows 0-9 of the composited slots in,
+// the output out (forward), the whole (T, 16, K) gradient out (backward).
+// chip_smoke.py counts all of them from the inputs it times.
 //
-// Design: one block per tile, one thread per pixel.  The block addresses
-// its (16, K) slice directly: no pair_slot indirection and no permuted
-// copy.  The forward streams rows 0-9 through shared memory kBatchF slots
-// at a time and leaves once every pixel has stopped (__syncthreads_count).
-// The backward walks from the block's largest n_contrib down to slot 0 in
-// batches of kBatchB, every thread on the same slot in lockstep (a pixel
-// past its own n_contrib contributes zeros), recovering the transmittance
-// before each blended splat by division as K1-bwd does.  Because each
-// (tile, slot) cell belongs to this block alone, the sum over the tile's
-// pixels needs no global atomics: a warp-shuffle sum per warp, the warps'
-// sums stored in shared memory, then added in warp order by one thread per
-// (slot, row), which makes one plain store.  The result is deterministic.
-#include "common.cuh"
-#include "composite_common.cuh"
+// Design: K1's kernels on the dense layout, one code (composite_tile.cuh)
+// that differs only in where rank j of tile t lives: column j of the
+// tile's (16, K) block, no pair_slot indirection.
+//  * Forward, gs::fwd_tile: one block per 16 x 16 corner of a tile (the
+//    whole tile when tile <= 16), a warp on an 8x4 patch; the tile's first
+//    counts[t] slots (all K for K4a) are staged packed with their gate
+//    power; each warp tests 32 slots at once against its patch's rectangle
+//    and walks the survivors in rank order, a lane below the gate power
+//    skips its exp, warps and blocks leave when their pixels have stopped.
+//    out and n_contrib are bit-equal to the plain version.
+//  * Backward, gs::bwd_tile: one block per tile (side = tile: 1,024
+//    threads at tile 32), so that each (tile, slot) cell belongs to one
+//    block and no cell buffer or gather is needed.  Each warp walks down
+//    from its own largest n_contrib, skips the ranks its rectangle cannot
+//    reach, sums a rank over its lanes by ballot (none, one, or a
+//    reduce-scatter) into per-warp partials, which one thread per (rank,
+//    row) adds in warp order and stores, consecutive threads on
+//    consecutive slots.  Then rows 0-9 past the walk and rows 10-15 are
+//    zero-filled with 16-byte stores.  No atomics: two launches give equal
+//    bits.
+// With counters, the forward counts the pairs it evaluated and those its
+// warps culled (together the pairs the plain version examines), the
+// backward the (warp, rank) pairs below each warp's bound that it walked
+// and those it culled.
+#include "composite_tile.cuh"
 
 namespace {
 
-constexpr int kBatchF = 256;
-constexpr int kBatchB = 32;
-constexpr int kMaxWarps = 32;
 using gs::kTerms;
 
 __device__ __forceinline__ int tile_count(const int* counts, int t, int K) {
   return counts == nullptr ? K : min(max(counts[t], 0), K);
 }
 
-__global__ void __launch_bounds__(1024)
+template <bool kCount>
+__global__ void __launch_bounds__(gs::kFwdThreads)
 composite_dense_fwd_kernel(const int* __restrict__ counts,
                            const float* __restrict__ attrs, int K, int ntx,
-                           int tile, float* __restrict__ out,
-                           int* __restrict__ n_contrib) {
-  __shared__ float s_attr[10][kBatchF];
-  const int t = blockIdx.x;
-  const int P = tile * tile;
-  const int pid = threadIdx.x;
-  const float px = static_cast<float>((t % ntx) * tile + pid % tile);
-  const float py = static_cast<float>((t / ntx) * tile + pid / tile);
-  const int count = tile_count(counts, t, K);
-  const float* a = attrs + static_cast<size_t>(t) * 16 * K;
-
-  gs::FwdPixel p;
-  for (int b0 = 0; b0 < count; b0 += kBatchF) {
-    // also the barrier that keeps the previous batch until all have read it
-    if (__syncthreads_count(!p.done) == 0) break;
-    const int n = min(kBatchF, count - b0);
-    for (int i = pid; i < 10 * n; i += blockDim.x) {
-      const int c = i / n;
-      const int j = i - c * n;
-      s_attr[c][j] = a[c * K + b0 + j];
-    }
-    __syncthreads();
-    if (p.done) continue;
-    for (int j = 0; j < n; ++j) {
-      gs::fwd_blend(p, px, py, gs::splat_at(s_attr, j), b0 + j);
-      if (p.done) break;
-    }
-  }
-  float* o = out + static_cast<size_t>(t) * 8 * P + pid;
-  o[0 * P] = p.cr;
-  o[1 * P] = p.cg;
-  o[2 * P] = p.cb;
-  o[3 * P] = p.cd;
-  o[4 * P] = p.tr;
-  o[5 * P] = 0.f;
-  o[6 * P] = 0.f;
-  o[7 * P] = 0.f;
-  n_contrib[static_cast<size_t>(t) * P + pid] = p.last;
+                           int tile, int side, float* __restrict__ out,
+                           int* __restrict__ n_contrib,
+                           unsigned long long* __restrict__ counters) {
+  __shared__ gs::PackedSplat s_splat[gs::kFwdThreads];
+  const int nsx = (tile + side - 1) / side;
+  const int nsub = nsx * nsx;
+  const int t = blockIdx.x / nsub;
+  const int sub = blockIdx.x - t * nsub;
+  gs::fwd_tile<kCount>(
+      gs::DenseRun{attrs + static_cast<size_t>(t) * 16 * K, K,
+                   tile_count(counts, t, K)},
+      t, sub, nsx, ntx, tile, side, out, n_contrib, counters, s_splat);
 }
 
+// K4's sums: row c, slot j of the tile's (16, K) gradient block.
+struct DenseSink {
+  float* d;
+  int K;
+  static constexpr bool kTermMajor = true;
+  __device__ __forceinline__ void operator()(int j, int c, float v) const {
+    d[c * K + j] = v;
+  }
+};
+
+// Zero the floats [p, p + n) with every thread of the block: 16-byte
+// stores from the first 16-byte boundary, single floats around them.
+__device__ __forceinline__ void zero_fill(float* p, int n) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int head = min(
+      n, static_cast<int>((16 - (reinterpret_cast<size_t>(p) & 15)) & 15) / 4);
+  const int n4 = (n - head) / 4;
+  float4* q = reinterpret_cast<float4*>(p + head);
+  for (int i = tid; i < n4; i += nt) q[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < head; i += nt) p[i] = 0.f;
+  for (int i = head + 4 * n4 + tid; i < n; i += nt) p[i] = 0.f;
+}
+
+template <bool kCount>
 __global__ void __launch_bounds__(1024)
 composite_dense_bwd_kernel(const int* __restrict__ counts,
                            const float* __restrict__ attrs, int K, int ntx,
                            int tile, const float* __restrict__ out,
                            const int* __restrict__ n_contrib,
                            const float* __restrict__ g,
-                           float* __restrict__ d_attrs) {
-  __shared__ float s_attr[10][kBatchB];
-  __shared__ float s_part[kMaxWarps][kTerms][kBatchB];
-  __shared__ int s_walk;
+                           float* __restrict__ d_attrs,
+                           unsigned long long* __restrict__ counters) {
+  extern __shared__ float4 s_dyn[];
   const int t = blockIdx.x;
-  const int P = tile * tile;
-  const int pid = threadIdx.x;
-  const bool pixel = pid < P;
-  const int lane = pid & 31;
-  const int warp = pid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float px = static_cast<float>((t % ntx) * tile + pid % tile);
-  const float py = static_cast<float>((t / ntx) * tile + pid / tile);
-  const int count = tile_count(counts, t, K);
-  const float* a = attrs + static_cast<size_t>(t) * 16 * K;
   float* d = d_attrs + static_cast<size_t>(t) * 16 * K;
-  const size_t base = static_cast<size_t>(t) * 8 * P + pid;
-
-  const int nc = pixel ? n_contrib[static_cast<size_t>(t) * P + pid] : 0;
-  gs::BwdPixel p{1.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (pixel) {
-    p.tr = out[base + 4 * P];
-    p.g_r = g[base];
-    p.g_g = g[base + 1 * P];
-    p.g_b = g[base + 2 * P];
-    p.g_d = g[base + 3 * P];
-    p.gtf_tf = g[base + 4 * P] * p.tr;
-  }
-  if (pid == 0) s_walk = 0;
-  __syncthreads();
-  if (nc > 0) atomicMax(&s_walk, nc);
-  __syncthreads();
-  const int walk = min(s_walk, count);
-
-  for (int b0 = ((walk - 1) / kBatchB) * kBatchB; walk > 0 && b0 >= 0;
-       b0 -= kBatchB) {
-    const int n = min(kBatchB, walk - b0);
-    __syncthreads();  // the previous batch's sums have been read
-    for (int i = pid; i < 10 * n; i += blockDim.x) {
-      const int c = i / n;
-      const int j = i - c * n;
-      s_attr[c][j] = a[c * K + b0 + j];
-    }
-    __syncthreads();
-    for (int j = n - 1; j >= 0; --j) {
-      float v[kTerms];
-#pragma unroll
-      for (int c = 0; c < kTerms; ++c) v[c] = 0.f;
-      bool blended = false;
-      if (b0 + j < nc)
-        blended = gs::bwd_pair(p, px, py, gs::splat_at(s_attr, j), v);
-      // v is zero on every lane of a warp where no lane blended
-      if (__any_sync(0xffffffffu, blended)) {
-#pragma unroll
-        for (int c = 0; c < kTerms; ++c) v[c] = gs::warp_sum(v[c]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < kTerms; ++c) s_part[warp][c][j] = v[c];
-      }
-    }
-    __syncthreads();
-    for (int i = pid; i < kTerms * n; i += blockDim.x) {
-      const int c = i / n;
-      const int j = i - c * n;
-      float sum = 0.f;
-      for (int w = 0; w < nwarps; ++w) sum = sum + s_part[w][c][j];
-      d[c * K + b0 + j] = sum;
-    }
-  }
-  // every other cell of the tile's slice: rows 10-15, and slots past the
-  // walk (no pixel blended them)
-  for (int i = pid; i < 16 * K; i += blockDim.x) {
-    const int c = i / K;
-    if (c >= kTerms || i - c * K >= walk) d[i] = 0.f;
-  }
+  const int walk = gs::bwd_tile<kCount>(
+      gs::DenseRun{attrs + static_cast<size_t>(t) * 16 * K, K,
+                   tile_count(counts, t, K)},
+      DenseSink{d, K}, t, 0, 1, ntx, tile, tile, out, n_contrib, g, s_dyn,
+      counters);
+  // every other cell of the tile's block: slots past the walk (no pixel
+  // blended them) and rows 10-15
+  for (int c = 0; c < kTerms; ++c) zero_fill(d + c * K + walk, K - walk);
+  zero_fill(d + kTerms * K, (16 - kTerms) * K);
 }
 
 int launch_fwd(const int* counts, const float* attrs, int T, int K, int ntx,
-               int tile, float* out, int* n_contrib, void* stream_ptr) {
+               int tile, float* out, int* n_contrib,
+               unsigned long long* counters, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int P = tile * tile;
   if (P < 1 || P > 1024 || K < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (T <= 0) return static_cast<int>(cudaGetLastError());
-  composite_dense_fwd_kernel<<<T, P, 0, stream>>>(counts, attrs, K, ntx, tile,
-                                                  out, n_contrib);
+  const gs::FwdGrid gr = gs::fwd_grid(tile);
+  const int blocks = T * gr.nsx * gr.nsx;
+  if (counters != nullptr) {
+    composite_dense_fwd_kernel<true><<<blocks, gr.threads, 0, stream>>>(
+        counts, attrs, K, ntx, tile, gr.side, out, n_contrib, counters);
+  } else {
+    composite_dense_fwd_kernel<false><<<blocks, gr.threads, 0, stream>>>(
+        counts, attrs, K, ntx, tile, gr.side, out, n_contrib, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kCount>
+int launch_bwd_as(const int* counts, const float* attrs, int T, int K,
+                  int ntx, int tile, const float* out, const int* n_contrib,
+                  const float* g, float* d_attrs,
+                  unsigned long long* counters, cudaStream_t stream) {
+  const int threads = (tile * tile + 31) / 32 * 32;
+  const int smem = gs::bwd_smem(threads);
+  if (smem > 48 * 1024) {  // above the default: blocks of more than 8 warps
+    const cudaError_t err = cudaFuncSetAttribute(
+        composite_dense_bwd_kernel<kCount>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  composite_dense_bwd_kernel<kCount><<<T, threads, smem, stream>>>(
+      counts, attrs, K, ntx, tile, out, n_contrib, g, d_attrs, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bwd(const int* counts, const float* attrs, int T, int K, int ntx,
                int tile, const float* out, const int* n_contrib,
-               const float* g, float* d_attrs, void* stream_ptr) {
+               const float* g, float* d_attrs, unsigned long long* counters,
+               void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int P = tile * tile;
   if (P < 1 || P > 1024 || K < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (T <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = (P + 31) / 32 * 32;
-  composite_dense_bwd_kernel<<<T, threads, 0, stream>>>(
-      counts, attrs, K, ntx, tile, out, n_contrib, g, d_attrs);
-  return static_cast<int>(cudaGetLastError());
+  return counters != nullptr
+             ? launch_bwd_as<true>(counts, attrs, T, K, ntx, tile, out,
+                                   n_contrib, g, d_attrs, counters, stream)
+             : launch_bwd_as<false>(counts, attrs, T, K, ntx, tile, out,
+                                    n_contrib, g, d_attrs, nullptr, stream);
 }
 
 }  // namespace
@@ -214,32 +189,39 @@ int launch_bwd(const int* counts, const float* attrs, int T, int K, int ntx,
 GS_EXPORT_ERROR_STRING
 
 // K4a: attrs (T, 16, K) float32; out (T, 8, tile*tile) float32; n_contrib
-// (T, tile*tile) int32; tile*tile <= 1024.
+// (T, tile*tile) int32; tile*tile <= 1024.  counters: null, or two zeroed
+// 64-bit words that receive the pairs evaluated and the pairs culled.
 extern "C" int composite_dense_fwd_launch(const float* attrs, int T, int K,
                                           int ntx, int tile, float* out,
-                                          int* n_contrib, void* stream_ptr) {
+                                          int* n_contrib,
+                                          unsigned long long* counters,
+                                          void* stream_ptr) {
   return launch_fwd(nullptr, attrs, T, K, ntx, tile, out, n_contrib,
-                    stream_ptr);
+                    counters, stream_ptr);
 }
 
 // K4a backward: out, n_contrib from the forward; g (T, 8, tile*tile)
-// float32; d_attrs (T, 16, K) float32, written whole.
+// float32; d_attrs (T, 16, K) float32, written whole.  counters: null, or
+// two zeroed 64-bit words that receive the (warp, rank) pairs walked and
+// culled.
 extern "C" int composite_dense_bwd_launch(const float* attrs, int T, int K,
                                           int ntx, int tile, const float* out,
                                           const int* n_contrib,
                                           const float* g, float* d_attrs,
+                                          unsigned long long* counters,
                                           void* stream_ptr) {
   return launch_bwd(nullptr, attrs, T, K, ntx, tile, out, n_contrib, g,
-                    d_attrs, stream_ptr);
+                    d_attrs, counters, stream_ptr);
 }
 
 // K4b: as K4a, with counts (T,) int32 (clamped to [0, K] here).
 extern "C" int composite_dyn_fwd_launch(const int* counts, const float* attrs,
                                         int T, int K, int ntx, int tile,
                                         float* out, int* n_contrib,
+                                        unsigned long long* counters,
                                         void* stream_ptr) {
   if (counts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_fwd(counts, attrs, T, K, ntx, tile, out, n_contrib,
+  return launch_fwd(counts, attrs, T, K, ntx, tile, out, n_contrib, counters,
                     stream_ptr);
 }
 
@@ -247,8 +229,9 @@ extern "C" int composite_dyn_bwd_launch(const int* counts, const float* attrs,
                                         int T, int K, int ntx, int tile,
                                         const float* out, const int* n_contrib,
                                         const float* g, float* d_attrs,
+                                        unsigned long long* counters,
                                         void* stream_ptr) {
   if (counts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bwd(counts, attrs, T, K, ntx, tile, out, n_contrib, g,
-                    d_attrs, stream_ptr);
+                    d_attrs, counters, stream_ptr);
 }

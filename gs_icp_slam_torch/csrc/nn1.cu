@@ -36,7 +36,10 @@
 //     queries (two a lane, register-blocked: one reference read feeds two
 //     pairs).  The block computes a lower bound (below) between its
 //     queries' box and every chunk's box and sorts the chunks by it
-//     (bitonic, in shared memory).  The nearest kCoop chunks are compared
+//     (bitonic, in shared memory).  Above gs::kSortChunks chunks (2^20
+//     references) the launcher runs this kernel once per segment of
+//     kSortChunks chunks, each launch starting from the bests the last
+//     one wrote.  The nearest kCoop chunks are compared
 //     one at a time by all warps together, which gives every query a
 //     close best; then each warp walks its own share of the rest of the
 //     sorted list (chunks kCoop + warp, + 16, ...) with no barrier,
@@ -72,7 +75,6 @@
 namespace {
 
 using gs::kChunk;
-using gs::kMaxChunks;
 using gs::pack;
 using gs::sqdist;
 constexpr int kGroup = 64;        // queries per block, two a lane
@@ -88,13 +90,22 @@ struct Query : gs::QueryPoint {
   int bi;
 };
 
+// With kCarry, the best starts from the one idx/sqd hold (a previous
+// segment's).
+template <bool kCarry>
 __device__ __forceinline__ Query load_query(const float* __restrict__ query,
                                             const int* __restrict__ qorder,
-                                            int Q, int k) {
+                                            int Q, int k,
+                                            const int* __restrict__ idx,
+                                            const float* __restrict__ sqd) {
   Query a;
   static_cast<gs::QueryPoint&>(a) = gs::load_query_point(query, qorder, Q, k);
   a.bd = GS_BIG;
   a.bi = 0;
+  if (kCarry && a.q >= 0) {
+    a.bd = sqd[a.q];
+    a.bi = idx[a.q];
+  }
   return a;
 }
 
@@ -131,14 +142,16 @@ __device__ __forceinline__ bool needs(const Query& a, float4 lo, float4 hi) {
   return gs::point_needs(a, lo, hi, a.bd);
 }
 
+template <bool kCarry>
 __global__ void __launch_bounds__(kThreads)
 nn1_search(const float* __restrict__ query, const int* __restrict__ qorder,
            int Q, const float4* __restrict__ cref,
            const float4* __restrict__ cbox, const int* __restrict__ ccount,
-           int nch, int nsort, int* __restrict__ idx,
+           int c0, int nch, int nsort, int* __restrict__ idx,
            float* __restrict__ sqd, unsigned long long* __restrict__ counters) {
-  // dynamic: the warps' chunk buffers (kWarps x kChunk float4), then the
-  // nsort (bound bits, chunk) keys
+  // chunks [c0, c0 + nch), one segment (kCarry: not the first); dynamic
+  // shared memory: the warps' chunk buffers (kWarps x kChunk float4), then
+  // the nsort (bound bits, chunk) keys
   extern __shared__ float4 s_dyn[];
   float4* s_ref = s_dyn;
   auto* s_key = reinterpret_cast<unsigned long long*>(s_dyn + kWarps * kChunk);
@@ -147,8 +160,8 @@ nn1_search(const float* __restrict__ query, const int* __restrict__ qorder,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int g0 = blockIdx.x * kGroup;
-  Query a = load_query(query, qorder, Q, g0 + lane);
-  Query b = load_query(query, qorder, Q, g0 + 32 + lane);
+  Query a = load_query<kCarry>(query, qorder, Q, g0 + lane, idx, sqd);
+  Query b = load_query<kCarry>(query, qorder, Q, g0 + 32 + lane, idx, sqd);
 
   // the group's box (every warp computes the same one)
   float3 glo, ghi;
@@ -168,8 +181,12 @@ nn1_search(const float* __restrict__ query, const int* __restrict__ qorder,
     glo = make_float3(bx[0], bx[1], bx[2]);
     ghi = make_float3(bx[3], bx[4], bx[5]);
   }
-  if (tid < kGroup) s_best[tid] = pack(GS_BIG, 0);
-  gs::sort_chunks(glo, ghi, cbox, ccount, nch, nsort, s_key);
+  if (!kCarry && tid < kGroup) s_best[tid] = pack(GS_BIG, 0);
+  if (kCarry && tid < 32) {
+    s_best[tid] = pack(a.bd, a.bi);
+    s_best[tid + 32] = pack(b.bd, b.bi);
+  }
+  gs::sort_chunks(glo, ghi, cbox, ccount, c0, nch, nsort, s_key);
 
   // The nearest kCoop chunks first, one at a time, every warp on a share
   // of each chunk's references: the queries get close bests before the
@@ -297,7 +314,8 @@ GS_EXPORT_ERROR_STRING
 // + 16 bytes, m = max(ceil(L / 128), 1), 16-byte aligned, laid out as
 // the packed references (m * 128 float4), the boxes (2m float4), two
 // 64-bit counters (visits, references compared) and the counts (m int);
-// idx (Q,) int32, sqd (Q,) float32.  L <= kMaxChunks * kChunk.
+// idx (Q,) int32, sqd (Q,) float32.  Any L: one launch of the search per
+// gs::kSortChunks chunks.
 extern "C" int nn1_launch(const float* query, const int* qorder, int Q,
                           const float* rT, const float* bias, int Tp,
                           const int* rorder, int L, void* scratch, int* idx,
@@ -305,24 +323,37 @@ extern "C" int nn1_launch(const float* query, const int* qorder, int Q,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (rorder == nullptr) L = Tp;
   const int nch = (L + kChunk - 1) / kChunk;
-  if (Q < 0 || Tp < 0 || L < Tp || nch > kMaxChunks)
+  if (Q < 0 || Tp < 0 || L < Tp)
     return static_cast<int>(cudaErrorInvalidValue);
   const gs::ChunkScratch cs = gs::chunk_scratch(scratch, nch);
   gs::nn_chunks<<<nch > 0 ? nch : 1, kChunk, 0, stream>>>(
       rT, Tp, 1, bias, nullptr, rorder, L, Tp, cs.cref, cs.cbox, cs.ccount,
       cs.counters);
   if (Q == 0) return static_cast<int>(cudaGetLastError());
-  const int nsort = gs::sort_size(nch);
+  const int nsort = gs::sort_size(min(nch, gs::kSortChunks));
   const int smem =
       kWarps * kChunk * static_cast<int>(sizeof(float4)) +
       nsort * static_cast<int>(sizeof(unsigned long long));
   cudaError_t err = cudaSuccess;
-  if (smem > 47 * 1024)  // with the static 512 B, above the 48 KB default
+  if (smem > 47 * 1024) {  // with the static 512 B, above the 48 KB default
     err = cudaFuncSetAttribute(
-        nn1_search, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        nn1_search<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(nn1_search<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  nn1_search<<<(Q + kGroup - 1) / kGroup, kThreads, smem, stream>>>(
-      query, qorder, Q, cs.cref, cs.cbox, cs.ccount, nch, nsort, idx, sqd,
-      cs.counters);
+  const int grid = (Q + kGroup - 1) / kGroup;
+  const int nseg = min(nch, gs::kSortChunks);
+  nn1_search<false><<<grid, kThreads, smem, stream>>>(
+      query, qorder, Q, cs.cref, cs.cbox, cs.ccount, 0, nseg,
+      gs::sort_size(nseg), idx, sqd, cs.counters);
+  for (int c0 = nseg; c0 < nch; c0 += gs::kSortChunks) {
+    const int n = min(gs::kSortChunks, nch - c0);
+    nn1_search<true><<<grid, kThreads, smem, stream>>>(
+        query, qorder, Q, cs.cref, cs.cbox, cs.ccount, c0, n,
+        gs::sort_size(n), idx, sqd, cs.counters);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,11 @@
 // (knn.cu, k-NN): references packed into chunks of kChunk positions of a
 // spatial order, each with its axis-aligned box; a lower bound between a
 // box of queries and a chunk's box; the block's chunk list sorted by it,
-// nearest first.
+// nearest first, kSortChunks chunks at a time (a segment of the order, its
+// keys in shared memory).  A search walks the segments in turn (K2 one
+// launch a segment, K3 a loop in its launch), each nearest first, so it
+// takes any number of references; the skip and stop rules below hold
+// inside each segment's sorted list.
 //
 // The lower bound.  For boxes [qlo, qhi] (queries) and [lo, hi] (a
 // chunk), per axis g = max(qlo - hi, lo - qhi, 0) and
@@ -24,7 +28,7 @@
 namespace gs {
 
 constexpr int kChunk = 128;       // references per chunk
-constexpr int kMaxChunks = 8192;  // the sort buffer: 64 KB of shared memory
+constexpr int kSortChunks = 8192;  // a segment: 64 KB of sort keys
 constexpr float kShrink = 1.0f - 1.0f / 1048576.0f;
 
 // (distance bits, index) as one 64-bit word: for distances >= +0 the
@@ -199,25 +203,27 @@ __device__ __forceinline__ bool point_needs(const QueryPoint& a, float4 lo,
   return a.live && box_lb(p, p, lo, hi) <= thr;
 }
 
-// The block's chunk list: (bound bits, chunk) keys for the group's box
-// [glo, ghi] against every chunk's (an empty chunk: +inf), sorted ascending
-// in s_key (nsort, a power of two >= nch; keys past nch are all ones) by a
-// bitonic sort with every thread of the block.  Ends with a barrier.
+// The block's chunk list for one segment, chunks [c0, c0 + nseg): (bound
+// bits, chunk) keys for the group's box [glo, ghi] against every chunk's
+// (an empty chunk: +inf), sorted ascending in s_key (nsort, a power of two
+// >= nseg; keys past nseg are all ones) by a bitonic sort with every
+// thread of the block.  Ends with a barrier.
 __device__ __forceinline__ void sort_chunks(
     float3 glo, float3 ghi, const float4* __restrict__ cbox,
-    const int* __restrict__ ccount, int nch, int nsort,
+    const int* __restrict__ ccount, int c0, int nseg, int nsort,
     unsigned long long* s_key) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  for (int c = tid; c < nsort; c += nt) {
+  for (int i = tid; i < nsort; i += nt) {
     unsigned long long key = ~0ull;
-    if (c < nch) {
+    if (i < nseg) {
+      const int c = c0 + i;
       const float lb = ccount[c] > 0
                            ? box_lb(glo, ghi, cbox[2 * c], cbox[2 * c + 1])
                            : INFINITY;
       key = pack(lb, c);
     }
-    s_key[c] = key;
+    s_key[i] = key;
   }
   __syncthreads();
   for (int k = 2; k <= nsort; k <<= 1) {
@@ -237,9 +243,10 @@ __device__ __forceinline__ void sort_chunks(
   }
 }
 
-__host__ __forceinline__ int sort_size(int nch) {
+// The sort size of a segment of n chunks: a power of two >= n.
+__host__ __device__ __forceinline__ int sort_size(int n) {
   int nsort = 1;
-  while (nsort < nch) nsort <<= 1;
+  while (nsort < n) nsort <<= 1;
   return nsort;
 }
 

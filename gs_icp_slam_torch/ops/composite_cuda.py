@@ -22,12 +22,15 @@ splat's cells through its pair rows (`splat_rows`: from the binning, or
 `gather_cells_plain` are that design in plain PyTorch.  `make_composite`
 and `make_composite_dyn` build the K4a/K4b entry points the same way.
 
-Both K1 kernels give each warp an 8x4 patch of pixels and skip a splat
+All four kernels give each warp an 8x4 patch of pixels and skip a splat
 when a rectangle test proves that no pixel of the patch reaches the
-splat's gate power (`patch_culled_plain`, `fwd_warp_patches`);
-`composite_fwd_cull_plain` is K1-fwd's cull in plain PyTorch, and
-`composite_fwd_counts` reads the kernel's own count of the pairs it
-evaluated and culled, for chip_smoke.py.
+splat's gate power (`patch_culled_plain`, `fwd_warp_patches`); K4's
+kernels are K1's on the dense layout (csrc/composite_tile.cuh).
+`composite_fwd_cull_plain` and `composite_dense_fwd_cull_plain` are the
+forwards' cull in plain PyTorch, `composite_dense_bwd_ranks_plain` K4's
+backward walk bound and cull; `composite_fwd_counts`,
+`composite_dense_fwd_counts` and `composite_dense_bwd_counts` read the
+kernels' own counts, for chip_smoke.py.
 
 The plain versions share one rank-at-a-time loop over a run layout: the
 splats of each tile's run gathered rank-major, (10, T, kmax), with an
@@ -59,16 +62,18 @@ BWD_SIDE = 16
 # points, each with its own launch count
 COMPOSITE_DENSE_FWD = CudaKernel("composite_dense_fwd", "composite_dense.cu",
                                  "composite_dense_fwd_launch",
-                                 [_P, _I, _I, _I, _I, _P, _P, _P])
+                                 [_P, _I, _I, _I, _I, _P, _P, _P, _P])
 COMPOSITE_DENSE_BWD = CudaKernel("composite_dense_bwd", "composite_dense.cu",
                                  "composite_dense_bwd_launch",
-                                 [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P])
+                                 [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                  _P])
 COMPOSITE_DYN_FWD = CudaKernel("composite_dyn_fwd", "composite_dense.cu",
                                "composite_dyn_fwd_launch",
-                               [_P, _P, _I, _I, _I, _I, _P, _P, _P])
+                               [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P])
 COMPOSITE_DYN_BWD = CudaKernel("composite_dyn_bwd", "composite_dense.cu",
                                "composite_dyn_bwd_launch",
-                               [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P])
+                               [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                _P])
 
 
 def _pixels(T, ntx, tile, dev, dtype):
@@ -138,7 +143,8 @@ def patch_culled_plain(a: torch.Tensor, xlo, xhi, ylo, yhi) -> torch.Tensor:
     its operation order: True where no pixel of [xlo, xhi] x [ylo, yhi]
     can reach the splat's gate power.  a (10, ...) splat rows, broadcast
     with the rectangle's bounds; a conic that is not positive definite or
-    has a condition number of 1e4 or more culls nothing."""
+    has a condition number of 1e4 or more culls nothing, unless the gate
+    power is +inf (opacity <= 0 or NaN: culled everywhere)."""
     ca, cb, cc = a[2], a[3], a[4]
     det = ca * cc - cb * cb
     tr = ca + cc
@@ -147,15 +153,18 @@ def patch_culled_plain(a: torch.Tensor, xlo, xhi, ylo, yhi) -> torch.Tensor:
     zero = torch.zeros((), dtype=a.dtype, device=a.device)
     gx = torch.fmax(torch.fmax(xlo - a[0], a[0] - xhi), zero)
     gy = torch.fmax(torch.fmax(ylo - a[1], a[1] - yhi), zero)
-    return ok & (0.5 * lam * (gx * gx + gy * gy) * 0.98
-                 > 0.01 - gate_power_plain(a[8]))
+    pmin = gate_power_plain(a[8])
+    return ~(pmin < float("inf")) | (
+        ok & (0.5 * lam * (gx * gx + gy * gy) * 0.98 > 0.01 - pmin))
 
 
-def fwd_warp_patches(tile: int) -> torch.Tensor:
-    """K1-fwd's warps (composite_common.cuh corner_pixel): (tile^2,) the
-    warp of each pixel of a tile, numbered block by block (a block per
-    BWD_SIDE x BWD_SIDE corner, an 8x4 patch a warp)."""
-    side = min(tile, BWD_SIDE)
+def fwd_warp_patches(tile: int, side: int | None = None) -> torch.Tensor:
+    """The kernels' warps (composite_common.cuh corner_pixel): (tile^2,) the
+    warp of each pixel of a tile, numbered block by block, a block per
+    side x side corner (K1-fwd, K1-bwd and K4's forward: side
+    min(tile, BWD_SIDE); K4's backward: side tile), an 8x4 patch a warp
+    where side is a multiple of 8, else whole rows."""
+    side = min(tile, BWD_SIDE) if side is None else side
     nsx = -(-tile // side)
     threads = -(-side * side // 32) * 32
     tid = torch.arange(threads)
@@ -173,6 +182,22 @@ def fwd_warp_patches(tile: int) -> torch.Tensor:
         ok = (tid < side * side) & (x < tile) & (y < tile)
         patch[(y * tile + x)[ok]] = sub * (threads // 32) + warp[ok]
     return patch
+
+
+def _warp_rects(px, py, patch):
+    """Each warp's pixel rectangle: four (T, nwarps, 1) bounds xlo, xhi,
+    ylo, yhi over the pixels (T, P) of the warp of each pixel (patch)."""
+    n = int(patch.max()) + 1
+    T = px.shape[0]
+    rect = []
+    for v, red, fill in ((px, "amin", float("inf")),
+                         (px, "amax", -float("inf")),
+                         (py, "amin", float("inf")),
+                         (py, "amax", -float("inf"))):
+        r = torch.full((T, n), fill, dtype=px.dtype, device=px.device)
+        rect.append(r.scatter_reduce(1, patch.expand(T, -1), v, red)[
+            ..., None])
+    return rect
 
 
 def _composite_loop(px, py, in_run, a, skip=None):
@@ -242,6 +267,22 @@ def composite_work(counts: torch.Tensor, starts: torch.Tensor,
     return int(_composite_loop(px, py, in_run, a)[2])
 
 
+def _cull_loop(px, py, in_run, a, tile):
+    """The forward's loop over a run layout with every pair skipped that
+    the kernels' warp-rectangle test skips (fwd_warp_patches,
+    patch_culled_plain on the warp's pixel rectangle): (out, n_contrib,
+    stats) as composite_fwd_cull_plain returns them."""
+    patch = fwd_warp_patches(tile).to(a.device)
+    rect = _warp_rects(px, py, patch)
+    culled = patch_culled_plain(a[:, :, None, :], *rect)         # (T, n, K)
+    out, n_contrib, examined, gated, cull, lost = _composite_loop(
+        px, py, in_run, a, skip=culled[:, patch])
+    stats = dict(examined=int(examined), gated=int(gated),
+                 evaluated=int(examined - cull), culled=int(cull),
+                 lost=int(lost))
+    return out, n_contrib, stats
+
+
 def composite_fwd_cull_plain(counts: torch.Tensor, starts: torch.Tensor,
                              pair_slot: torch.Tensor, attr: torch.Tensor,
                              ntx: int, tile: int):
@@ -253,26 +294,9 @@ def composite_fwd_cull_plain(counts: torch.Tensor, starts: torch.Tensor,
     examined pairs the rectangle test lets through), "culled", "lost"}
     (see _composite_loop): exact skips give lost 0 and composite_fwd_plain's
     bits; gated counts the pairs that blend or stop, the work behind
-    K1-fwd's second bound.  Holds a (T, P, kmax) mask."""
+    K1-fwd's bound.  Holds a (T, P, kmax) mask."""
     px, py, in_run, _, a = _runs(counts, starts, pair_slot, attr, ntx, tile)
-    patch = fwd_warp_patches(tile).to(a.device)
-    n = int(patch.max()) + 1
-    T = px.shape[0]
-    rect = []
-    for v, red, fill in ((px, "amin", float("inf")),
-                         (px, "amax", -float("inf")),
-                         (py, "amin", float("inf")),
-                         (py, "amax", -float("inf"))):
-        r = torch.full((T, n), fill, dtype=a.dtype, device=a.device)
-        rect.append(r.scatter_reduce(1, patch.expand(T, -1), v, red)[
-            ..., None])                                          # (T, n, 1)
-    culled = patch_culled_plain(a[:, :, None, :], *rect)         # (T, n, K)
-    out, n_contrib, examined, gated, cull, lost = _composite_loop(
-        px, py, in_run, a, skip=culled[:, patch])
-    stats = dict(examined=int(examined), gated=int(gated),
-                 evaluated=int(examined - cull), culled=int(cull),
-                 lost=int(lost))
-    return out, n_contrib, stats
+    return _cull_loop(px, py, in_run, a, tile)
 
 
 def _check_inputs(counts, starts, pair_slot, attr, tile):
@@ -571,6 +595,36 @@ def composite_dense_work(counts, attrs: torch.Tensor, ntx: int,
     return int(_composite_loop(*_dense_runs(counts, attrs, ntx, tile))[2])
 
 
+def composite_dense_fwd_cull_plain(counts, attrs: torch.Tensor, ntx: int,
+                                   tile: int):
+    """Plain PyTorch model of K4's forward cull (K1-fwd's, on the dense
+    layout): (out, n_contrib, stats) as composite_fwd_cull_plain; exact
+    skips give lost 0 and composite_dense_fwd_plain's bits, and evaluated +
+    culled = examined, composite_dense_work's count.  Holds a (T, P, kmax)
+    mask."""
+    return _cull_loop(*_dense_runs(counts, attrs, ntx, tile), tile)
+
+
+def composite_dense_bwd_ranks_plain(counts, attrs: torch.Tensor,
+                                    n_contrib: torch.Tensor, ntx: int,
+                                    tile: int) -> dict:
+    """Plain PyTorch model of K4's backward walk bound and cull: one block
+    per tile, a warp per 8x4 patch (fwd_warp_patches(tile, tile)); a warp
+    considers the ranks below its pixels' largest n_contrib and culls
+    those whose splat misses its rectangle (patch_culled_plain).  Returns
+    {"walked", "culled"} (warp, rank) pairs, the kernel's counters."""
+    px, py, in_run, a = _dense_runs(counts, attrs, ntx, tile)
+    patch = fwd_warp_patches(tile, tile).to(a.device)
+    T, n = px.shape[0], int(patch.max()) + 1
+    wwalk = torch.zeros((T, n), dtype=torch.long, device=a.device)
+    wwalk = wwalk.scatter_reduce(1, patch.expand(T, -1), n_contrib.long(),
+                                 "amax")
+    below = torch.arange(a.shape[2], device=a.device) < wwalk[..., None]
+    culled = patch_culled_plain(a[:, :, None, :], *_warp_rects(px, py, patch))
+    return dict(walked=int((below & ~culled).sum()),
+                culled=int((below & culled).sum()))
+
+
 def _composite_dense_bwd_cells(counts, attrs, out, n_contrib, g, ntx, tile):
     px, py, in_run, a = _dense_runs(counts, attrs, ntx, tile)
     cell, walked, blended = _composite_bwd_loop(px, py, in_run, a, out,
@@ -596,6 +650,23 @@ def composite_dense_bwd_work(counts, attrs, out, n_contrib, g, ntx: int,
     return int(walked), int(blended)
 
 
+def _launch_dense_fwd(counts, attrs, ntx, tile, counters):
+    dev = attrs.device
+    T, _, K = attrs.shape
+    P = tile * tile
+    out = torch.empty((T, 8, P), dtype=torch.float32, device=dev)
+    n_contrib = torch.empty((T, P), dtype=torch.int32, device=dev)
+    cp = None if counters is None else counters.data_ptr()
+    if counts is None:
+        COMPOSITE_DENSE_FWD(attrs.data_ptr(), T, K, ntx, tile, out.data_ptr(),
+                            n_contrib.data_ptr(), cp, stream_ptr(dev))
+    else:
+        COMPOSITE_DYN_FWD(counts.data_ptr(), attrs.data_ptr(), T, K, ntx,
+                          tile, out.data_ptr(), n_contrib.data_ptr(), cp,
+                          stream_ptr(dev))
+    return out, n_contrib
+
+
 def composite_dense_fwd(counts, attrs: torch.Tensor, ntx: int, tile: int):
     """Composite each tile's dense block of depth-sorted splats: kernel K4a
     when counts is None (all K slots), K4b when counts (T,) int32 is given
@@ -608,21 +679,52 @@ def composite_dense_fwd(counts, attrs: torch.Tensor, ntx: int, tile: int):
     composite_fwd.
     """
     _check_dense(counts, attrs, tile)
-    dev = attrs.device
-    if not on_cuda(dev):
+    if not on_cuda(attrs.device):
         return composite_dense_fwd_plain(counts, attrs, ntx, tile)
+    return _launch_dense_fwd(counts, attrs, ntx, tile, None)
+
+
+def composite_dense_fwd_counts(counts, attrs: torch.Tensor, ntx: int,
+                               tile: int):
+    """K4a/K4b's forward on the card as composite_dense_fwd, also reading
+    what it did (a host sync; for measurement): (out, n_contrib, stats),
+    stats {"evaluated", "culled"} as composite_fwd_counts, modelled by
+    composite_dense_fwd_cull_plain."""
+    _check_dense(counts, attrs, tile)
+    if not on_cuda(attrs.device):
+        raise ValueError("composite_dense_fwd_counts reads the kernel's "
+                         "counters: CUDA tensors only")
+    counters = torch.zeros(2, dtype=torch.int64, device=attrs.device)
+    out, n_contrib = _launch_dense_fwd(counts, attrs, ntx, tile, counters)
+    evaluated, culled = counters.tolist()
+    return out, n_contrib, dict(evaluated=evaluated, culled=culled)
+
+
+def _check_dense_bwd(counts, attrs, out, n_contrib, g, tile):
+    _check_dense(counts, attrs, tile)
+    dev = attrs.device
+    T, P = attrs.shape[0], tile * tile
+    check_tensor("out", out, torch.float32, (T, 8, P), dev)
+    check_tensor("n_contrib", n_contrib, torch.int32, (T, P), dev)
+    check_tensor("g", g, torch.float32, (T, 8, P), dev)
+
+
+def _launch_dense_bwd(counts, attrs, out, n_contrib, g, ntx, tile,
+                      counters):
+    dev = attrs.device
     T, _, K = attrs.shape
-    P = tile * tile
-    out = torch.empty((T, 8, P), dtype=torch.float32, device=dev)
-    n_contrib = torch.empty((T, P), dtype=torch.int32, device=dev)
+    d_attrs = torch.empty_like(attrs)
+    cp = None if counters is None else counters.data_ptr()
     if counts is None:
-        COMPOSITE_DENSE_FWD(attrs.data_ptr(), T, K, ntx, tile, out.data_ptr(),
-                            n_contrib.data_ptr(), stream_ptr(dev))
+        COMPOSITE_DENSE_BWD(attrs.data_ptr(), T, K, ntx, tile, out.data_ptr(),
+                            n_contrib.data_ptr(), g.data_ptr(),
+                            d_attrs.data_ptr(), cp, stream_ptr(dev))
     else:
-        COMPOSITE_DYN_FWD(counts.data_ptr(), attrs.data_ptr(), T, K, ntx,
+        COMPOSITE_DYN_BWD(counts.data_ptr(), attrs.data_ptr(), T, K, ntx,
                           tile, out.data_ptr(), n_contrib.data_ptr(),
+                          g.data_ptr(), d_attrs.data_ptr(), cp,
                           stream_ptr(dev))
-    return out, n_contrib
+    return d_attrs
 
 
 def composite_dense_bwd(counts, attrs: torch.Tensor, out: torch.Tensor,
@@ -631,27 +733,32 @@ def composite_dense_bwd(counts, attrs: torch.Tensor, out: torch.Tensor,
     """Gradient of attrs (T, 16, K) from g (T, 8, P), the gradient of
     composite_dense_fwd's out (rows 0-4 read): kernel K4a's backward when
     counts is None, K4b's otherwise.  Rows 10-15 and slots outside the
-    runs are zero."""
-    _check_dense(counts, attrs, tile)
-    dev = attrs.device
-    T, _, K = attrs.shape
-    P = tile * tile
-    check_tensor("out", out, torch.float32, (T, 8, P), dev)
-    check_tensor("n_contrib", n_contrib, torch.int32, (T, P), dev)
-    check_tensor("g", g, torch.float32, (T, 8, P), dev)
-    if not on_cuda(dev):
+    runs are zero.  Deterministic: no atomics."""
+    _check_dense_bwd(counts, attrs, out, n_contrib, g, tile)
+    if not on_cuda(attrs.device):
         return composite_dense_bwd_plain(counts, attrs, out, n_contrib, g,
                                          ntx, tile)
-    d_attrs = torch.empty_like(attrs)
-    if counts is None:
-        COMPOSITE_DENSE_BWD(attrs.data_ptr(), T, K, ntx, tile, out.data_ptr(),
-                            n_contrib.data_ptr(), g.data_ptr(),
-                            d_attrs.data_ptr(), stream_ptr(dev))
-    else:
-        COMPOSITE_DYN_BWD(counts.data_ptr(), attrs.data_ptr(), T, K, ntx,
-                          tile, out.data_ptr(), n_contrib.data_ptr(),
-                          g.data_ptr(), d_attrs.data_ptr(), stream_ptr(dev))
-    return d_attrs
+    return _launch_dense_bwd(counts, attrs, out, n_contrib, g, ntx, tile,
+                             None)
+
+
+def composite_dense_bwd_counts(counts, attrs: torch.Tensor,
+                               out: torch.Tensor, n_contrib: torch.Tensor,
+                               g: torch.Tensor, ntx: int, tile: int):
+    """K4a/K4b's backward on the card as composite_dense_bwd, also reading
+    what its walk did (a host sync; for measurement): (d_attrs, stats),
+    stats {"walked", "culled"}: the (warp, rank) pairs below each warp's
+    largest n_contrib that it walked, and those its rectangle test culled
+    (composite_dense_bwd_ranks_plain)."""
+    _check_dense_bwd(counts, attrs, out, n_contrib, g, tile)
+    if not on_cuda(attrs.device):
+        raise ValueError("composite_dense_bwd_counts reads the kernel's "
+                         "counters: CUDA tensors only")
+    counters = torch.zeros(2, dtype=torch.int64, device=attrs.device)
+    d_attrs = _launch_dense_bwd(counts, attrs, out, n_contrib, g, ntx, tile,
+                                counters)
+    walked, culled = counters.tolist()
+    return d_attrs, dict(walked=walked, culled=culled)
 
 
 class _CompositeDense(torch.autograd.Function):

@@ -39,11 +39,9 @@ NN1 = CudaKernel("nn1", "nn1.cu", "nn1_launch",
 KNN = CudaKernel("knn", "knn.cu", "knn_launch",
                  [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P])
 
-# csrc/nn_common.cuh's geometry: references per chunk and the most chunks
-# one call takes (the sort buffer); queries per group of K2 (nn1.cu) and
-# of K3 (knn.cu)
+# csrc/nn_common.cuh's geometry: references per chunk; queries per group
+# of K2 (nn1.cu) and of K3 (knn.cu)
 NN_CHUNK = 128
-NN_MAX_CHUNKS = 8192
 NN_GROUP = 64
 KNN_GROUP = 32
 # csrc/knn.cu's order: Morton cells on a grid of 2^KNN_CELL_BITS a side
@@ -249,9 +247,6 @@ def _nn1(query, rT, bias, ref_order, query_order):
     Q = query.shape[0]
     L = Tp if ref_order is None else ref_order.shape[0]
     nch = -(-L // NN_CHUNK)
-    if nch > NN_MAX_CHUNKS:
-        raise ValueError(f"{L} references: K2 takes at most "
-                         f"{NN_MAX_CHUNKS * NN_CHUNK}")
     idx = torch.empty(Q, dtype=torch.int32, device=dev)
     sqd = torch.empty(Q, dtype=torch.float32, device=dev)
     scratch = _chunk_scratch(nch, dev)
@@ -427,8 +422,8 @@ def _check_knn(query, ref, ref_valid, k):
     check_tensor("query", query, torch.float32, (None, 3), dev)
     check_tensor("ref", ref, torch.float32, (None, 3), dev)
     check_tensor("ref_valid", ref_valid, torch.bool, (ref.shape[0],), dev)
-    if not 1 <= k <= 32:
-        raise ValueError(f"k={k} outside 1..32")
+    if k < 1:
+        raise ValueError(f"k={k}: needs k >= 1")
 
 
 def _spread3(x: torch.Tensor) -> torch.Tensor:
@@ -483,10 +478,12 @@ def knn_orders(query: torch.Tensor, ref: torch.Tensor,
 
 
 def _knn_scratch_bytes(Q: int, R: int) -> int:
-    """csrc/knn.cu scratch_bytes: the chunk scratch, 16-byte aligned, then
-    the two orders."""
+    """csrc/knn.cu scratch_bytes: the chunk scratch, 16-byte aligned, the
+    order's work (its box and histogram), then the two orders."""
     m = max(-(-R // NN_CHUNK), 1)
-    return -(-(m * (NN_CHUNK * 16 + 36) + 16) // 16) * 16 + 4 * R + 4 * Q
+    work = 4 * (8 + (1 << (3 * KNN_CELL_BITS)) + 1)
+    return (-(-(m * (NN_CHUNK * 16 + 36) + 16) // 16) * 16 + work + 4 * R
+            + 4 * Q)
 
 
 def _knn(query, ref, ref_valid, k, count):
@@ -495,9 +492,6 @@ def _knn(query, ref, ref_valid, k, count):
     dev = query.device
     Q, R = query.shape[0], ref.shape[0]
     nch = -(-R // NN_CHUNK)
-    if nch > NN_MAX_CHUNKS:
-        raise ValueError(f"{R} references: K3 takes at most "
-                         f"{NN_MAX_CHUNKS * NN_CHUNK}")
     idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
     sqd = torch.empty((Q, k), dtype=torch.float32, device=dev)
     scratch = torch.empty(_knn_scratch_bytes(Q, R), dtype=torch.uint8,
@@ -510,14 +504,15 @@ def _knn(query, ref, ref_valid, k, count):
 
 def knn_search_kernel(query: torch.Tensor, ref: torch.Tensor,
                       ref_valid: torch.Tensor, k: int = 20):
-    """Exact k-NN (kernel K3), 1 <= k <= 32: idx (Q, k) int32 nearest
+    """Exact k-NN (kernel K3), any k >= 1: idx (Q, k) int32 nearest
     first (self included when query is ref) and sqd (Q, k) float32; ties
     to the lowest index; missing neighbours report 3.4e38 with an
     unspecified index.  On the card the kernel orders both clouds in
     space itself (morton_order's up to the points of a cell; one
     order when query is ref), one call, no host sync, and reports in the
-    caller's order; at most NN_MAX_CHUNKS * NN_CHUNK (1,048,576)
-    references."""
+    caller's order; any number of references (its chunks sorted 8,192 at
+    a time).  Above k = 32 it searches once per 32 neighbours, each pass
+    above the last one's farthest (distance, index)."""
     _check_knn(query, ref, ref_valid, k)
     if not on_cuda(query.device):
         return knn_plain(query, ref, ref_valid, k)
@@ -528,9 +523,10 @@ def knn_search_counts(query: torch.Tensor, ref: torch.Tensor,
                       ref_valid: torch.Tensor, k: int = 20):
     """K3 on the card as knn_search_kernel, also reading what its search
     did (a host sync; for measurement): (idx, sqd, stats), stats with
-    knn_chunked_plain's keys, counted by the kernel.  Its warps visit
-    chunks in parallel, so the counts can differ from the plain model's
-    and from one call to the next; the results cannot."""
+    knn_chunked_plain's keys, counted by the kernel (over all its passes,
+    above k = 32).  Its warps visit chunks in parallel, so the
+    counts can differ from the plain model's and from one call to the
+    next; the results cannot."""
     _check_knn(query, ref, ref_valid, k)
     if not on_cuda(query.device):
         raise ValueError("knn_search_counts reads the kernel's counters: "

@@ -13,7 +13,8 @@ Per frame, as in the JAX engine (engine.py:261-331):
                                masked Adam, pruning every prune_interval
 and `run()` runs `mapping_iters_final` more iterations, then renders every
 frame of the finished map for PSNR (kernel K1-fwd).  Training stages 1/2
-and densification are not ported yet and raise NotImplementedError.
+are not ported yet and raise NotImplementedError; `densify_enabled` is read
+by nothing, as in the JAX engine, which never calls densify.
 """
 from __future__ import annotations
 
@@ -62,10 +63,6 @@ class SLAMResult:
 class SLAMEngine:
     def __init__(self, dataset: RGBDSequence, cfg: SLAMConfig,
                  seed: int = 0, device="cuda"):
-        if cfg.map.densify_enabled:
-            raise NotImplementedError(
-                "densification (densify_clone_split) arrives with the "
-                "map-maintenance slice")
         self.device = resolve_device(device)
         self.dataset = dataset
         self.cfg = cfg

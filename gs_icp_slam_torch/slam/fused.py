@@ -463,9 +463,6 @@ class FusedEngine:
         TorchDraws seeded from `seed`."""
         from ..utils.pointcloud import make_downsample_filter
 
-        if cfg.map.densify_enabled:
-            raise _not_ported("densification (densify_clone_split)",
-                              "item 2, map maintenance")
         self.device = resolve_device(device)
         self.dataset = dataset
         self.cfg = cfg

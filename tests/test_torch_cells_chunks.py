@@ -23,6 +23,13 @@ so give its bits, on random and binned splats and on conics and
 opacities the test must leave alone (degenerate, ill-conditioned, NaN,
 opacity <= 0).
 
+K4a/K4b run K1's kernels on a dense (16, K) block per tile.  The plain
+model of their forward cull (composite_dense_fwd_cull_plain) must give
+composite_dense_fwd_plain's bits with evaluated + culled = examined, and
+no rank their backward's warps cull (composite_dense_bwd_ranks_plain) may
+blend at a pixel of the warp, at tiles 8, 16 and 32, on path D's kind of
+data (chip_smoke.py dense_inputs) and on large, opaque splats.
+
 K3 sorts both clouds by Morton cell and keeps a (distance, index) list
 per query over chunks visited nearest first; its plain model
 (knn_chunked_plain) must equal knn_plain exactly: on the synthetic
@@ -343,6 +350,82 @@ def test_patch_culled_plain_bound():
     reach = (power >= cc.gate_power_plain(t[8])).any(1).any(0)
     assert not (culled & reach).any()
     assert culled.float().mean() > 0.3
+
+
+# ---------------------------------------------------------------- K4 ----
+
+def _dense_case(name, tile, dyn):
+    """(counts or None, attrs (T, 16, K)), ntx: 6 tiles in rows of 3,
+    K 128; tile 0 empty and tile 1 full (with counts), tile 2 at opacity
+    0.  "path_d": chip_smoke.py's dense_inputs (conic 0.05, opacity
+    0.1-0.9, centres over the image); "saturated": large opaque splats
+    whose pixels stop early."""
+    rng = np.random.default_rng(tile)
+    T, ntx, K = 6, 3, 128
+    counts = rng.integers(0, K + 1, size=(T,)).astype(np.int32)
+    counts[[0, 1]] = (0, K)
+    a = np.zeros((T, 16, K), np.float32)
+    a[:, 0] = rng.uniform(0, ntx * tile, (T, K))
+    a[:, 1] = rng.uniform(0, (T // ntx) * tile, (T, K))
+    if name == "path_d":
+        a[:, 2] = a[:, 4] = 0.05
+        a[:, 8] = rng.uniform(0.1, 0.9, (T, K))
+    else:
+        a[:, 2] = rng.uniform(0.002, 0.01, (T, K))
+        a[:, 4] = rng.uniform(0.002, 0.01, (T, K))
+        a[:, 3] = rng.uniform(-0.9, 0.9, (T, K)) * np.sqrt(a[:, 2] * a[:, 4])
+        a[:, 8] = rng.uniform(0.8, 0.99, (T, K))
+    a[:, 5:8] = rng.uniform(0, 1, (T, 3, K))
+    a[:, 9] = rng.uniform(0.5, 5.0, (T, K))
+    a[2, 8] = 0.0
+    return (torch.as_tensor(counts) if dyn else None), torch.as_tensor(a), ntx
+
+
+@pytest.mark.parametrize("dyn", [False, True])
+@pytest.mark.parametrize("name", ["path_d", "saturated"])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_dense_fwd_warp_cull_is_exact(tile, name, dyn):
+    """K4's forward cull skips no pair the plain compositor blends or
+    stops at: the culled model gives the plain version's bits, and
+    evaluated + culled = examined (composite_dense_work)."""
+    counts, attrs, ntx = _dense_case(name, tile, dyn)
+    out0, nc0 = cc.composite_dense_fwd_plain(counts, attrs, ntx, tile)
+    out1, nc1, st = cc.composite_dense_fwd_cull_plain(counts, attrs, ntx,
+                                                      tile)
+    assert st["lost"] == 0
+    assert torch.equal(out1, out0) and torch.equal(nc1, nc0)
+    assert st["evaluated"] + st["culled"] == st["examined"]
+    assert st["examined"] == cc.composite_dense_work(counts, attrs, ntx,
+                                                     tile)
+    assert 0 < st["gated"] <= st["evaluated"]
+    assert st["culled"] > 0
+
+
+@pytest.mark.parametrize("name", ["path_d", "saturated"])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_dense_bwd_ranks_are_exact(tile, name):
+    """K4's backward: a warp (one block per tile, 8x4 patches) walks the
+    ranks below its pixels' largest n_contrib, and no rank it culls
+    blends at one of its pixels; walked + culled is that bound summed
+    over the warps."""
+    counts, attrs, ntx = _dense_case(name, tile, True)
+    _, nc = cc.composite_dense_fwd_plain(counts, attrs, ntx, tile)
+    st = cc.composite_dense_bwd_ranks_plain(counts, attrs, nc, ntx, tile)
+    patch = cc.fwd_warp_patches(tile, tile)
+    T = attrs.shape[0]
+    wwalk = torch.zeros((T, int(patch.max()) + 1), dtype=torch.long)
+    wwalk = wwalk.scatter_reduce(1, patch.expand(T, -1), nc.long(), "amax")
+    assert st["walked"] + st["culled"] == int(wwalk.sum())
+    if name == "path_d":  # small splats miss some warps' patches
+        assert st["culled"] > 0
+    # every (pixel, rank) pair that blends in the backward's walk
+    px, py, _, a = cc._dense_runs(counts, attrs, ntx, tile)
+    rank = torch.arange(a.shape[2])
+    blends = cc._geometry(a[:, :, None, :], px[..., None], py[..., None])[5] \
+        & (rank < nc[..., None].long())                          # (T, P, K)
+    rect = cc._warp_rects(px, py, patch)
+    culled = cc.patch_culled_plain(a[:, :, None, :], *rect)      # (T, n, K)
+    assert not (culled[:, patch] & blends).any()
 
 
 # ---------------------------------------------------------------- K3 ----

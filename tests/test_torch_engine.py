@@ -23,7 +23,9 @@ from gs_icp_slam_tpu.slam import SLAMEngine as JEngine
 from gs_icp_slam_torch import convert
 from gs_icp_slam_torch.datasets import open_dataset as t_open_dataset
 from gs_icp_slam_torch.models import gaussian_map as tgm
+from gs_icp_slam_torch.slam import FusedEngine as TFused
 from gs_icp_slam_torch.slam import SLAMEngine as TEngine
+from gs_icp_slam_torch.slam import TorchDraws
 
 W, H, FRAMES = 128, 96, 6
 
@@ -146,15 +148,37 @@ def test_add_gaussians_and_trackable_export():
 
 
 def test_unported_options_raise():
-    """Training stages 1/2 (the fused-engine slice) and densification (the
-    map-maintenance slice) are not ported: the engine refuses them
-    instead of ignoring them."""
+    """Training stages 1/2 (the fused-engine slice) are not ported: the
+    engine refuses them instead of ignoring them."""
     _, jcfg = _cfg()
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     seq = t_open_dataset("synthetic", width=W, height=H, num_frames=2)
-    for bad in (cfg.replace(opt=dataclasses.replace(cfg.opt,
-                                                    training_stage=1)),
-                cfg.replace(map=dataclasses.replace(cfg.map,
-                                                    densify_enabled=True))):
-        with pytest.raises(NotImplementedError, match="slice"):
-            TEngine(seq, bad, device="cpu")
+    bad = cfg.replace(opt=dataclasses.replace(cfg.opt, training_stage=1))
+    with pytest.raises(NotImplementedError, match="slice"):
+        TEngine(seq, bad, device="cpu")
+
+
+def test_densify_flag_is_read_by_nothing():
+    """`densify_enabled` is accepted and changes nothing, as in the JAX
+    engines (which define it but never call densify): SLAMEngine and
+    FusedEngine give the flag-off run's results exactly on 2 frames (the
+    flag-off runs are held against JAX by the other tests)."""
+    _, jcfg = _cfg()
+    cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, fps_cap=None))
+    seq = t_open_dataset("synthetic", width=W, height=H, num_frames=2)
+    on = cfg.replace(map=dataclasses.replace(cfg.map, densify_enabled=True))
+    for make in (lambda c: TEngine(seq, c, device="cpu"),
+                 lambda c: TFused(seq, c, device="cpu",
+                                  draws=TorchDraws(1))):
+        (r0, m0), (r1, m1) = [(e.run(eval_render=False), e) for e in
+                              (make(cfg), make(on))]
+        np.testing.assert_array_equal(r1.poses, r0.poses)
+        assert (r1.num_gaussians, r1.kf_total, r1.kf_stored) == (
+            r0.num_gaussians, r0.kf_total, r0.kf_stored)
+        g0 = m0.gmap if isinstance(m0, TEngine) else m0.state.gmap
+        g1 = m1.gmap if isinstance(m1, TEngine) else m1.state.gmap
+        for f in g0._fields:
+            a, b = getattr(g0, f), getattr(g1, f)
+            if torch.is_tensor(a):
+                assert torch.equal(a, b), f

@@ -13,10 +13,12 @@ warps skip are ones the gate refuses); K1-bwd each attribute row within
 1e-4 of the row's largest |gradient| (the same per-pair arithmetic, but
 the pixel sums are taken by warp shuffles, per-warp partials and
 per-splat cell sums in another order), and equal bits on two runs (no
-atomics); K4a/K4b forward atol
-1e-5 with n_contrib exact, backward each row within 1e-4 of the row's
-largest |gradient| (no atomics: the kernel's warp sums are added in a
-fixed order, so two runs give the same bits).
+atomics); K4a/K4b (K1's kernels on the dense layout) forward exact,
+out and n_contrib, backward each row within 1e-4 of the row's largest
+|gradient| (no atomics: the kernel's warp sums are added in a fixed
+order, so two runs give the same bits).  K3 above k = 32 (passes of 32
+neighbours) and K2/K3 above 2^20 references (the chunks sorted a segment
+at a time) exact as well.
 """
 import numpy as np
 import pytest
@@ -201,6 +203,61 @@ def test_knn_kernel_matches_plain(dev, k):
     assert torch.equal(d1, d0)
     have = d0 < 1e37
     assert torch.equal(i1[have], i0[have])
+
+
+@pytest.mark.parametrize("k", [33, 40, 64, 100])
+@pytest.mark.parametrize("case", ["duplicates", "query_not_ref", "few_valid",
+                                  "surface"])
+def test_knn_kernel_above_32(dev, case, k):
+    """k > 32: the kernel searches in passes of 32 neighbours, each above
+    the last pass's farthest (distance, index) word; exact against
+    knn_plain, ties across passes included (duplicates)."""
+    q, ref, valid, same = _knn_case(case, np.random.default_rng(k))
+    r = torch.as_tensor(ref).to(dev)
+    v = torch.as_tensor(valid).to(dev)
+    qt = r if same else torch.as_tensor(q).to(dev)
+    i0, d0 = nn_cuda.knn_plain(qt, r, v, k)
+    i1, d1 = nn_cuda.knn_search_kernel(qt, r, v, k)
+    i2, d2, _ = nn_cuda.knn_search_counts(qt, r, v, k)
+    have = d0 < 1e37
+    for i, d in ((i1, d1), (i2, d2)):
+        assert torch.equal(d, d0)
+        assert torch.equal(i[have], i0[have])
+
+
+def _big_cloud(dev, Q, R=(1 << 20) + (1 << 17), seed=8):
+    """R references in a unit cube, 20% invalid, one duplicated far along
+    the index order (a tie across segments), and Q queries in the cube."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ref = torch.rand((R, 3), generator=g)
+    ref[R - 5] = ref[7]
+    valid = torch.rand(R, generator=g) > 0.2
+    valid[[7, R - 5]] = True
+    q = torch.rand((Q, 3), generator=g)
+    q[:3] = ref[7]
+    return q.to(dev), ref.to(dev), valid.to(dev)
+
+
+def test_nn1_kernel_above_2_20_references(dev):
+    """K2 on 1,179,648 references (two sort segments), in Morton order and
+    in index order: exact against nn1_plain."""
+    q, ref, valid = _big_cloud(dev, 3000)
+    rT, bias = nn_cuda.prepare_refs(ref, valid)
+    i0, d0 = nn_cuda.nn1_plain(q, rT, bias, q_chunk=256)
+    for order in (None, spatial_order(rT, valid)):
+        i1, d1 = nn_cuda.nn_search_pre(q, rT, bias, order)
+        assert torch.equal(i1, i0) and torch.equal(d1, d0)
+    assert (i0[:3] == 7).all()
+
+
+@pytest.mark.parametrize("k", [4, 40])
+def test_knn_kernel_above_2_20_references(dev, k):
+    """K3 on 1,179,648 references: the order over several blocks, the
+    chunks sorted a segment at a time; exact against knn_plain."""
+    q, ref, valid = _big_cloud(dev, 2000)
+    i0, d0 = nn_cuda.knn_plain(q, ref, valid, k, q_chunk=64)
+    i1, d1 = nn_cuda.knn_search_kernel(q, ref, valid, k)
+    assert torch.equal(d1, d0) and torch.equal(i1, i0)
 
 
 def test_knn_kernel_missing_neighbours(dev):
@@ -434,7 +491,7 @@ def test_composite_dense_kernels_match_plain(dev, dyn, T, ntx, K):
     attrs = torch.as_tensor(a).to(dev)
     out, nc = composite_cuda.composite_dense_fwd(c, attrs, ntx, tile)
     ref, nc0 = composite_cuda.composite_dense_fwd_plain(c, attrs, ntx, tile)
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    assert torch.equal(out, ref)
     assert torch.equal(nc, nc0)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(3))
     g[:, 5:] = 0.0
@@ -451,6 +508,71 @@ def test_composite_dense_kernels_match_plain(dev, dyn, T, ntx, K):
     assert float(want.abs().max()) > 0
     assert (got[:, 10:] == 0).all()
     assert (out[0, 4] == 1).all() == dyn  # counts 0 only with counts
+
+
+def _dense_case(T, ntx, tile, K, saturated):
+    """_dense_inputs at any tile; saturated: large opaque splats whose
+    pixels stop early."""
+    counts, a = _dense_inputs(T, ntx, tile, K)
+    if saturated:
+        rng = np.random.default_rng(K + tile)
+        a[:, 2] = rng.uniform(0.002, 0.01, (T, K))
+        a[:, 4] = rng.uniform(0.002, 0.01, (T, K))
+        a[:, 3] = rng.uniform(-0.9, 0.9, (T, K)) * np.sqrt(a[:, 2] * a[:, 4])
+        a[:, 8] = rng.uniform(0.8, 0.99, (T, K))
+        a[2, 8] = 0.0
+    return counts, a
+
+
+@pytest.mark.parametrize("saturated", [False, True])
+@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_composite_dense_kernels_at_every_tile(dev, tile, K, saturated):
+    """K4a and K4b at tiles 8, 16, 32 (the backward one block per tile:
+    1,024 threads at 32), an empty tile (0) and a zero-opacity one (2):
+    forward bits equal to the plain version, backward within 1e-4 of each
+    row's largest |gradient| and equal bits on two launches, the whole
+    gradient written; the counting entry points give the same results
+    and the plain models' counts."""
+    T, ntx = 12, 4
+    counts, a = _dense_case(T, ntx, tile, K, saturated)
+    attrs = torch.as_tensor(a).to(dev)
+    g = torch.randn((T, 8, tile * tile),
+                    generator=torch.Generator().manual_seed(tile))
+    g[:, 5:] = 0.0
+    g = g.to(dev)
+    for c in (None, torch.as_tensor(counts).to(dev)):
+        out, nc = composite_cuda.composite_dense_fwd(c, attrs, ntx, tile)
+        ref, nc0 = composite_cuda.composite_dense_fwd_plain(c, attrs, ntx,
+                                                            tile)
+        assert torch.equal(out, ref) and torch.equal(nc, nc0)
+        oc, ncc, st = composite_cuda.composite_dense_fwd_counts(c, attrs, ntx,
+                                                                tile)
+        assert torch.equal(oc, ref) and torch.equal(ncc, nc0)
+        want = composite_cuda.composite_dense_fwd_cull_plain(
+            None if c is None else c.cpu(), attrs.cpu(), ntx, tile)[2]
+        assert st == {k: want[k] for k in ("evaluated", "culled")}
+        # a freed block of NaN, which the next gradient most likely takes:
+        # every cell must be written
+        junk = torch.full_like(attrs, float("nan"))
+        del junk
+        got = composite_cuda.composite_dense_bwd(c, attrs, out, nc, g, ntx,
+                                                 tile)
+        again, bst = composite_cuda.composite_dense_bwd_counts(
+            c, attrs, out, nc, g, ntx, tile)
+        want = composite_cuda.composite_dense_bwd_plain(c, attrs, out, nc, g,
+                                                        ntx, tile)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, again)
+        scale = want.abs().amax((0, 2), keepdim=True).clamp(min=1e-30)
+        assert float(((got - want).abs() / scale).max()) <= 1e-4
+        assert float(want.abs().max()) > 0
+        assert (got[:, 10:] == 0).all() and (got[2] == 0).all()
+        assert bst == composite_cuda.composite_dense_bwd_ranks_plain(
+            None if c is None else c.cpu(), attrs.cpu(), nc.cpu(), ntx, tile)
+        if c is not None:
+            assert (out[0, 4] == 1).all() and (got[0] == 0).all()
 
 
 def test_composite_dense_entry_points_launch_their_kernels(dev):

@@ -279,6 +279,47 @@ def test_knn_plain_missing_neighbours():
     assert (td[:, 3:] == np.float32(3.4e38)).all()
 
 
+def test_knn_k40_matches_jax_knn_search(nn_case):
+    """k above 32 (K3 on the card runs it in passes of 32): the plain path
+    against the JAX knn_search, which on the CPU takes its XLA path, the
+    |q|^2 - 2 q.r + |r|^2 form.  That form rounds otherwise, so distances
+    agree to atol 1e-5 (|q|^2 ~ 10 at float32), and each column's
+    neighbours to that tolerance in their float64 distance (a near tie may
+    swap two indices)."""
+    q, ref, valid = nn_case
+    ji, jd = (np.asarray(x) for x in jknn.knn_search(
+        jnp.asarray(q), jnp.asarray(ref), jnp.asarray(valid), k=40))
+    ti, td = (x.numpy() for x in nn_cuda.knn_search_kernel(
+        torch.as_tensor(q), torch.as_tensor(ref), torch.as_tensor(valid),
+        40))
+    assert ti.shape == ji.shape == (300, 40)
+    np.testing.assert_allclose(td, jd, rtol=0, atol=1e-5)
+    d64 = ((q[:, None].astype(np.float64) - ref[None]) ** 2).sum(-1)
+    rows = np.arange(300)[:, None]
+    np.testing.assert_allclose(d64[rows, ti], d64[rows, ji], rtol=0,
+                               atol=1e-5)
+    assert valid[ti].all()
+    assert (ti == ji).mean() > 0.99
+
+
+def test_knn_k100_matches_float64():
+    """k = 100 on the plain path: the 100 nearest valid references by a
+    float64 sort, distances to rtol 1e-5, indices exact off near ties."""
+    rng = np.random.default_rng(12)
+    ref = rng.normal(size=(1500, 3)).astype(np.float32)
+    valid = rng.random(1500) > 0.3
+    q = rng.normal(size=(64, 3)).astype(np.float32)
+    ti, td = (x.numpy() for x in nn_cuda.knn_search_kernel(
+        torch.as_tensor(q), torch.as_tensor(ref), torch.as_tensor(valid),
+        100))
+    d64 = ((q[:, None].astype(np.float64) - ref[None]) ** 2).sum(-1)
+    d64[:, ~valid] = np.inf
+    want = np.sort(d64, 1)[:, :100]
+    np.testing.assert_allclose(td, want, rtol=1e-5)
+    np.testing.assert_allclose(d64[np.arange(64)[:, None], ti], want,
+                               rtol=1e-5)
+
+
 def test_nn_and_knn_search_entry_points(nn_case):
     q, ref, valid = nn_case
     d2 = ((q[:, None].astype(np.float64) - ref[None]) ** 2).sum(-1)
