@@ -56,7 +56,22 @@
    pairs that blended; beside it, every walked pair); K2, K3, K1-fwd and
    the K4 forwards are exact; K1-bwd and the K4 backwards must give equal
    bits on two launches;
-4. prints a "kernels" JSON line and, as the last line,
+4. then, after path C's run (before its refine), FusedEngine.evaluate
+   (per-frame PSNR, SSIM and LPIPS-alex on random weights against the
+   JAX evaluate of the same run); compact and densify_clone_split on path
+   C's final map, on the card and on the CPU with the same split noise;
+   paths E, F1 and F2, the port bench (gs_icp_slam_torch.bench) at
+   training stages 0, 1 and 2 at bench.py's sizes on the JAX runs'
+   recorded draws, each printing bench.py's JSON line and held
+   before its refine to the JAX run of bench.py's flow; the four stress
+   scenarios of tests/test_stress.py through FusedEngine.run, gated by
+   that file's thresholds and held to the JAX runs; K1-fwd (bit-equal)
+   and K1-bwd (within TOL_BWD_ROW) at a stage-1 opt view of path C's map
+   (600x340, 209 tiles of 32, K 4,096), timed beside their bounds;
+   K2 and K3 above 2^20 references also beside one library call
+   (cdist + min / topk) each; each phase's seconds;
+5. prints a "kernels" JSON line (each row with its launches on paths
+   A-F and the stress runs) and, as the last line,
    {"ok": true, "device": {...}}.  The card's name and power limit
    (nvidia-smi) is the first line of output.
 
@@ -118,6 +133,14 @@ REFINE_DRAWS_C = [
 # different keyframe decision).
 TOL_ATE_M = 5e-4
 TOL_PSNR_DB = 0.1
+# SSIM (mean, or per frame) and LPIPS (per frame, random alex weights,
+# relative: its values are ~3e-3) of the port's map against the JAX map of
+# the same run: the two maps differ by the runs' float32 drift
+TOL_SSIM = 1e-3
+TOL_LPIPS_REL = 1e-2
+# densify_clone_split's split rows, card against CPU: a Cholesky factor
+# and a 3x3 product in float32 (m)
+TOL_SPLIT_M = 1e-6
 # K1-bwd and the K4 backwards against their plain versions: each attribute
 # row within this share of the row's largest |gradient| (pixel sums in
 # another order)
@@ -129,6 +152,136 @@ TOL_ORACLE = 5e-3
 
 WIDTH, HEIGHT, FRAMES = 1200, 680, 36
 MAPPING_ITERS = 2
+
+# FusedEngine.evaluate on path C's run (scripts/port_reference.py --fused
+# --evaluate): per-frame PSNR, SSIM and LPIPS-alex on the random weights
+# make_random_weights(path, seed=0) writes
+REF_EVAL_C = dict(
+    per_frame_psnr=[
+        19.497751235961914, 19.440574645996094, 19.447036743164062,
+        19.526636123657227, 19.68819236755371, 19.95352554321289,
+        20.369964599609375, 21.001483917236328, 22.001651763916016,
+        23.702072143554688, 26.086341857910156, 26.14212989807129,
+        26.240434646606445, 26.451459884643555, 26.731380462646484,
+        27.001890182495117, 26.81766128540039, 26.58022117614746,
+        26.371217727661133, 26.213825225830078, 26.084911346435547,
+        26.016271591186523, 26.000688552856445, 26.003244400024414,
+        26.21358299255371, 26.41077423095703, 25.731388092041016,
+        25.119068145751953, 24.73027992248535, 24.458110809326172,
+        24.210311889648438, 24.115135192871094, 23.880342483520508,
+        22.229230880737305, 20.926206588745117, 19.660985946655273],
+    per_frame_ssim=[
+        0.5214211344718933, 0.5336886644363403, 0.5473036170005798,
+        0.5622246265411377, 0.5788702964782715, 0.5970038771629333,
+        0.6163208484649658, 0.6368424892425537, 0.6587660312652588,
+        0.6819652915000916, 0.704308807849884, 0.7126346230506897,
+        0.7228639125823975, 0.734636127948761, 0.7478117942810059,
+        0.758327841758728, 0.7548540234565735, 0.7519700527191162,
+        0.7505438327789307, 0.7513329982757568, 0.7532172203063965,
+        0.7574055194854736, 0.7630304098129272, 0.7699320912361145,
+        0.7795239090919495, 0.7870723605155945, 0.7867056131362915,
+        0.7885085940361023, 0.7935900688171387, 0.7994789481163025,
+        0.8058399558067322, 0.8146021962165833, 0.8221908807754517,
+        0.8231440782546997, 0.8257194757461548, 0.8243990540504456],
+    per_frame_lpips=[
+        0.0027126874774694443, 0.002685976680368185, 0.0026488725561648607,
+        0.00260611972771585, 0.0025106091052293777, 0.002388394670560956,
+        0.0022351311054080725, 0.0020250072702765465, 0.0017465284327045083,
+        0.0014303013449534774, 0.0012249264400452375, 0.0012224079109728336,
+        0.0012138921301811934, 0.001188435242511332, 0.0011618948774412274,
+        0.0011336894240230322, 0.0011884853010997176, 0.0012359037064015865,
+        0.0012786666629835963, 0.0013110003201290965, 0.0013462137430906296,
+        0.0013504396192729473, 0.0013656695373356342, 0.0013395961141213775,
+        0.001275074784643948, 0.0012514563277363777, 0.0014273872366175056,
+        0.0015932819806039333, 0.0017536681843921542, 0.0018918515415862203,
+        0.0020215052645653486, 0.002116421004757285, 0.002200916176661849,
+        0.002709985012188554, 0.0032392055727541447, 0.003842639736831188])
+# bench.py's flow before its refine (scripts/port_reference.py
+# --bench-stage S; F1's with --max-per-tile 1024) at stages 0, 1, 2 and
+# bench.py's sizes; the draws of each run and of one refine call after it
+# are path C's (the draws follow the keyframe decisions alone)
+REF_E = dict(ate_rmse_m=0.0018625356366780827,
+             psnr_pre_refine_db=23.918221314748127,
+             psnr_pre_refine_min_db=19.44057273864746,
+             ssim_pre_refine=0.7227238085534837, num_gaussians=49680,
+             kf_total=6, kf_count=6, vis_cap_dropped=0, tile_cap_dropped=0)
+REF_F1 = dict(ate_rmse_m=0.0018584208478529584,
+              psnr_pre_refine_db=23.889074590471054,
+              psnr_pre_refine_min_db=19.347190856933594,
+              ssim_pre_refine=0.7239735109938515, num_gaussians=49680,
+              kf_total=6, kf_count=6, vis_cap_dropped=0, tile_cap_dropped=0)
+REF_F2 = dict(ate_rmse_m=0.0018820462094310414,
+              psnr_pre_refine_db=22.11261494954427,
+              psnr_pre_refine_min_db=18.360319137573242,
+              ssim_pre_refine=0.690306598941485, num_gaussians=49680,
+              kf_total=6, kf_count=6, vis_cap_dropped=0, tile_cap_dropped=0)
+BENCH_PATHS = {"E": (0, REF_E), "F1": (1, REF_F1), "F2": (2, REF_F2)}
+# tests/test_stress.py's scenarios through the JAX FusedEngine
+# (scripts/port_reference.py --stress NAME), with their draws
+REF_STRESS = {
+    "depth_noise": dict(
+        ate_m=0.009737371344887478, psnr_mean=26.795907974243164,
+        num_gaussians=1368, kf_total=3, kf_count=3,
+        vis_cap_dropped=0, tile_cap_dropped=0,
+        draws=[
+            [16, 14], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0],
+            [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [16, 8], [2, 0], [2, 1],
+            [2, 1], [2, 0], [2, 1], [2, 1], [2, 0], [2, 0], [2, 1], [2, 0],
+            [16, 12], [3, 2], [3, 2], [3, 2], [3, 1], [3, 2], [3, 2], [3, 0],
+            [3, 1], [3, 2], [3, 1], [3, 0], [3, 2], [3, 2], [3, 1], [3, 2],
+            [3, 0], [3, 2], [3, 0], [3, 0], [3, 2], [3, 0], [3, 0], [3, 2],
+            [3, 2], [3, 0], [3, 2], [3, 0], [3, 1], [3, 2], [3, 1], [3, 1],
+            [3, 0], [3, 0], [3, 2], [3, 2], [3, 0], [3, 1], [3, 1], [3, 0],
+            [3, 2], [3, 2], [3, 1], [3, 1], [3, 2], [3, 1], [3, 2], [3, 1],
+            [3, 0], [3, 2], [3, 1], [3, 0], [3, 1], [3, 1], [3, 2], [3, 1],
+            [3, 0], [3, 0], [3, 0], [3, 0], [3, 0], [3, 2], [3, 2], [3, 1],
+            [3, 1], [3, 1], [3, 1]]),
+    "rotation_heavy": dict(
+        ate_m=0.008063147200914892, psnr_mean=22.54571278889974,
+        num_gaussians=2280, kf_total=5, kf_count=5,
+        vis_cap_dropped=0, tile_cap_dropped=0,
+        draws=[
+            [16, 14], [1, 0], [1, 0], [1, 0], [1, 0], [16, 5], [2, 1], [2, 1],
+            [2, 0], [2, 0], [2, 0], [2, 0], [2, 0], [2, 0], [16, 4], [3, 2],
+            [3, 2], [3, 1], [3, 0], [3, 1], [3, 0], [3, 2], [3, 2], [16, 4],
+            [4, 0], [4, 3], [16, 13], [5, 4], [5, 0], [5, 4], [5, 4], [5, 0],
+            [5, 1], [5, 3], [5, 2], [5, 0], [5, 2], [5, 0], [5, 4], [5, 1],
+            [5, 2], [5, 3], [5, 0], [5, 3], [5, 3], [5, 0], [5, 3], [5, 3],
+            [5, 4], [5, 4], [5, 2], [5, 2], [5, 3], [5, 3], [5, 1], [5, 0],
+            [5, 4], [5, 2], [5, 2], [5, 4], [5, 2], [5, 1], [5, 4], [5, 1],
+            [5, 1], [5, 3], [5, 0], [5, 4], [5, 0], [5, 0], [5, 0], [5, 4],
+            [5, 3], [5, 4], [5, 3], [5, 3], [5, 1], [5, 0], [5, 2], [5, 0],
+            [5, 2], [5, 0], [5, 1], [5, 3], [5, 4], [5, 1], [5, 4], [5, 3],
+            [5, 4], [5, 0], [5, 2], [5, 0], [5, 0]]),
+    "sparse_smooth": dict(
+        ate_m=0.001614066176581473, psnr_mean=8.476389050483704,
+        num_gaussians=3200, kf_total=4, kf_count=4,
+        vis_cap_dropped=0, tile_cap_dropped=0,
+        draws=[
+            [16, 14], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0],
+            [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [1, 0],
+            [1, 0], [1, 0], [1, 0], [1, 0], [1, 0], [16, 10], [2, 1], [2, 0],
+            [2, 0], [2, 1], [2, 1], [2, 0], [2, 0], [2, 0], [16, 10], [3, 0],
+            [3, 1], [16, 1], [4, 1], [4, 0]]),
+    "kf_overflow": dict(
+        ate_m=0.0030421100548858114, psnr_mean=31.8311824798584,
+        num_gaussians=3648, kf_total=8, kf_count=4,
+        vis_cap_dropped=0, tile_cap_dropped=0,
+        draws=[
+            [4, 2], [1, 0], [1, 0], [4, 1], [2, 0], [2, 1], [2, 1], [2, 1],
+            [4, 0], [3, 1], [3, 2], [3, 1], [3, 1], [4, 0], [4, 0], [4, 3],
+            [4, 3], [4, 2], [4, 1], [4, 3], [4, 2], [4, 2], [4, 3], [4, 0],
+            [4, 0], [4, 3], [4, 1], [4, 2], [4, 2], [4, 2], [4, 2], [4, 2],
+            [4, 1], [4, 1], [4, 1], [4, 0], [4, 0], [4, 2], [4, 0], [4, 2],
+            [4, 0], [4, 0], [4, 0], [4, 1], [4, 2], [4, 2], [4, 1], [4, 0],
+            [4, 3], [4, 2], [4, 1], [4, 1], [4, 3], [4, 1], [4, 3], [4, 3],
+            [4, 0], [4, 0], [4, 2], [4, 2], [4, 0], [4, 1], [4, 3], [4, 1],
+            [4, 0], [4, 2], [4, 1], [4, 2], [4, 3], [4, 2], [4, 2], [4, 1],
+            [4, 3], [4, 0], [4, 3], [4, 3], [4, 3], [4, 3], [4, 3], [4, 2],
+            [4, 1], [4, 1], [4, 3], [4, 0], [4, 3], [4, 2], [4, 1], [4, 1],
+            [4, 1], [4, 3], [4, 2], [4, 1], [4, 0], [4, 0], [4, 3], [4, 1],
+            [4, 3], [4, 0], [4, 3], [4, 2]]),
+}
 
 
 def fail(msg: str) -> None:
@@ -499,6 +652,7 @@ def big_reference_phase(nn_cuda, problems) -> dict:
     valid = (torch.rand(R, generator=gen) > 0.3).to(dev)
     q = (torch.rand((4096, 3), generator=gen) * 4 - 2).to(dev)
     nv = int(valid.sum())
+    rv = ref[valid]
     rT, bias = nn_cuda.prepare_refs(ref, valid)
     args = (q, rT, bias, spatial_order(rT, valid), nn_cuda.morton_order(q))
     i1, d1 = nn_cuda.nn_search_pre(*args)
@@ -515,6 +669,10 @@ def big_reference_phase(nn_cuda, problems) -> dict:
         ms=time_ms(lambda: nn_cuda.nn_search_pre(*args)),
         plain_ms=time_ms(lambda: nn_cuda.nn1_plain(q, rT, bias, q_chunk=256),
                          reps=1, warmup=0),
+        # one library call: cdist to every valid reference, (4,096, nv)
+        # in float32, then min
+        library_ms=time_ms(lambda: torch.cdist(q, rv).min(dim=1),
+                           reps=3, warmup=1),
         bound_ms_all_pairs=b, bound_by_all_pairs=by,
         chunks_culled=st["culled"], chunk_visits=st["visits"])}
     qk, k = q[:2048].contiguous(), 20
@@ -533,6 +691,8 @@ def big_reference_phase(nn_cuda, problems) -> dict:
         plain_ms=time_ms(lambda: nn_cuda.knn_plain(qk, ref, valid, k,
                                                    q_chunk=64),
                          reps=1, warmup=0),
+        library_ms=time_ms(lambda: torch.cdist(qk, rv).topk(
+            k, dim=1, largest=False), reps=3, warmup=1),
         bound_ms_all_pairs=b, bound_by_all_pairs=by,
         chunks_culled=st["culled"], chunk_visits=st["visits"])
     print(json.dumps({"phase": "nn1 and knn above 2^20 references", **out}),
@@ -634,6 +794,7 @@ def run_path_c(seq, cfg, FusedEngine, RecordedDraws, cuda_build, problems):
     if draws.used != len(DRAWS_C):
         problems.append(f"path C: {draws.used} draws taken, the JAX run "
                         f"took {len(DRAWS_C)}")
+    evaluate_phase(eng, cuda_build, problems)
 
     # one refine call: 64 mapping iterations, each one K1-bwd launch
     cuda_build.reset_launch_counts()
@@ -652,6 +813,395 @@ def run_path_c(seq, cfg, FusedEngine, RecordedDraws, cuda_build, problems):
         problems.append(f"refine: composite_bwd launched {n_bwd} times "
                         f"(expected 64), parameters finite: {finite}")
     return eng, res, launches, syncs, last_nn["args"]
+
+
+def launch_counts(cuda_build) -> dict:
+    return {k.name: k.launches for k in cuda_build.KERNELS.values()}
+
+
+def check_launched(name, launches, kernels_of_path, problems):
+    for k in kernels_of_path:
+        if launches[k] <= 0:
+            problems.append(f"{name}: kernel {k} was not launched")
+
+
+def evaluate_phase(eng, cuda_build, problems) -> dict:
+    """FusedEngine.evaluate on path C's finished run (before its refine):
+    per-frame PSNR, SSIM and LPIPS-alex (random weights that
+    make_random_weights writes under build/) against REF_EVAL_C."""
+    import os
+
+    import numpy as np
+
+    from gs_icp_slam_torch.eval.lpips import make_random_weights
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, "lpips_random_alex.npz")
+    make_random_weights(path, seed=0, net="alex")
+    os.environ["GS_LPIPS_WEIGHTS"] = path
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        m = eng.evaluate(eval_stride=1)
+    finally:
+        del os.environ["GS_LPIPS_WEIGHTS"]
+    launches = launch_counts(cuda_build)
+    out = dict(psnr=m.psnr, ssim=m.ssim, lpips=m.lpips,
+               per_frame_psnr=m.per_frame_psnr.tolist(),
+               per_frame_ssim=m.per_frame_ssim.tolist(),
+               per_frame_lpips=m.per_frame_lpips.tolist(),
+               seconds=time.perf_counter() - t0,
+               composite_fwd_launches=launches["composite_fwd"])
+    print(json.dumps({"phase": "FusedEngine.evaluate after path C", **out}),
+          flush=True)
+    check_launched("evaluate", launches, ("composite_fwd",), problems)
+    for key, tol, rel in (("per_frame_psnr", TOL_PSNR_DB, False),
+                          ("per_frame_ssim", TOL_SSIM, False),
+                          ("per_frame_lpips", TOL_LPIPS_REL, True)):
+        ref = np.asarray(REF_EVAL_C[key])
+        err = np.abs(np.asarray(out[key]) - ref)
+        err = float((err / ref if rel else err).max())
+        out[key + "_max_err"] = err
+        if not err <= tol:
+            problems.append(f"evaluate: {key} differs from JAX's by {err} "
+                            f"(tolerance {tol})")
+    return out
+
+
+def bench_path(name, card, cuda_build, problems) -> dict:
+    """The port bench (gs_icp_slam_torch.bench.run_bench) at bench.py's
+    sizes and a path's training stage (BENCH_PATHS), on the JAX run's
+    draws (path C's), then one refine call's, then a TorchDraws stream
+    (the wall-capped refine may take more calls): its JSON line beside
+    the card, and its state before the refine against the JAX run of
+    bench.py's flow."""
+    import numpy as np
+
+    from gs_icp_slam_torch.bench import bench_line, run_bench
+    from gs_icp_slam_torch.slam import RecordedDraws, TorchDraws
+
+    stage, ref = BENCH_PATHS[name]
+    draws = RecordedDraws(DRAWS_C + REFINE_DRAWS_C, then=TorchDraws(0))
+    env = {"GS_BENCH_STAGE": str(stage)}
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = run_bench(draws=draws, device="cuda", env=env)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(cuda_build)
+    pre = {k: v for k, v in run.pre_refine.items() if k != "poses"}
+    print(json.dumps(bench_line(run.fields)), flush=True)
+    print(json.dumps({"path": name, "entry": "gs_icp_slam_torch.bench."
+                      "run_bench", "training_stage": stage,
+                      "width": WIDTH, "height": HEIGHT, "frames": FRAMES,
+                      "card": card,
+                      "seconds": seconds, "launches": launches,
+                      "fields": run.fields, "pre_refine": pre}), flush=True)
+    check_launched(f"path {name}", launches,
+                   ("nn1", "knn", "composite_fwd", "composite_bwd"),
+                   problems)
+    if not np.isfinite(run.pre_refine["poses"]).all():
+        problems.append(f"path {name}: non-finite poses")
+    for key, tol in (("ate_rmse_m", TOL_ATE_M),
+                     ("psnr_pre_refine_db", TOL_PSNR_DB),
+                     ("psnr_pre_refine_min_db", TOL_PSNR_DB),
+                     ("ssim_pre_refine", TOL_SSIM)):
+        if not abs(pre[key] - ref[key]) <= tol:
+            problems.append(f"path {name}: {key} {pre[key]} vs JAX "
+                            f"{ref[key]} (tolerance {tol})")
+    for key in ("num_gaussians", "kf_total", "kf_count", "vis_cap_dropped",
+                "tile_cap_dropped"):
+        if pre[key] != ref[key]:
+            problems.append(f"path {name}: {key} {pre[key]} vs JAX "
+                            f"{ref[key]}")
+    if draws.used < len(DRAWS_C):
+        problems.append(f"path {name}: {draws.used} draws taken, the JAX "
+                        f"run took {len(DRAWS_C)}")
+    return dict(launches=launches, pre_refine=pre, fields=run.fields)
+
+
+def stage1_view_inputs(eng, cfg_b):
+    """A stage-1 opt view: path C's map (eng.state) and its newest stored
+    keyframe, one opt step of the stage-1 mapping primitives (600x340, 209
+    tiles of 32, K 4,096); returns the K1-fwd and K1-bwd arguments that the
+    step handed the kernels."""
+    import torch
+
+    from gs_icp_slam_torch.models import map_params
+    from gs_icp_slam_torch.ops import composite_cuda
+    from gs_icp_slam_torch.slam.fused import make_mapping_primitives
+
+    cfg1 = cfg_b.replace(opt=dataclasses.replace(cfg_b.opt,
+                                                 training_stage=1))
+    prim = make_mapping_primitives(cfg1, "cuda")
+    st = eng.state
+    captured = {}
+    fwd, bwd = composite_cuda.composite_fwd, composite_cuda.composite_bwd
+
+    def record_fwd(*a):
+        captured["fwd"] = a
+        return fwd(*a)
+
+    def record_bwd(*a):
+        captured["bwd"] = a
+        return bwd(*a)
+
+    composite_cuda.composite_fwd = record_fwd
+    composite_cuda.composite_bwd = record_bwd
+    try:
+        kf = st.kf_count - 1
+        prim.opt_step(map_params(st.gmap), st.adam, st.gmap.live,
+                      st.kf_w2c[kf], st.kf_rgb[kf], st.kf_depth[kf])
+        torch.cuda.synchronize()
+    finally:
+        composite_cuda.composite_fwd = fwd
+        composite_cuda.composite_bwd = bwd
+    return (tuple(a.detach() if torch.is_tensor(a) else a
+                  for a in captured["fwd"]),
+            tuple(a.detach() if torch.is_tensor(a) else a
+                  for a in captured["bwd"]))
+
+
+def opt_step_times(eng, cfg_b, reps: int = 10) -> dict:
+    """One opt step (render, loss, backward, Adam) at training stages 0, 1
+    and 2 on path C's map, its capacity bucket and its newest keyframe:
+    the host clock around reps steps that end in a synchronize (ms)."""
+    import torch
+
+    from gs_icp_slam_torch.models import map_params
+    from gs_icp_slam_torch.slam.fused import make_mapping_primitives
+
+    st = eng.state
+    nb = eng._pick_buckets(st.gmap.n)[0] or st.gmap.capacity
+    params = {k: v[:nb] for k, v in map_params(st.gmap).items()}
+    adam = st.adam._replace(m={k: v[:nb] for k, v in st.adam.m.items()},
+                            v={k: v[:nb] for k, v in st.adam.v.items()})
+    kf = st.kf_count - 1
+    view = (st.gmap.live[:nb], st.kf_w2c[kf], st.kf_rgb[kf], st.kf_depth[kf])
+    out = {}
+    for stage in (0, 1, 2):
+        cfg = cfg_b.replace(opt=dataclasses.replace(cfg_b.opt,
+                                                    training_stage=stage))
+        step = make_mapping_primitives(cfg, "cuda", n_cap=nb).opt_step
+        for _ in range(2):
+            step(params, adam, *view)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(params, adam, *view)
+        torch.cuda.synchronize()
+        out[stage] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def stage1_k1_phase(eng, cfg_b, composite_cuda, problems) -> dict:
+    """K1-fwd and K1-bwd at a stage-1 opt view (209 tiles, K 4,096): the
+    forward bit-equal to its plain version, its evaluated + culled pairs
+    adding up to the plain cull model's examined ones; the backward within
+    TOL_BWD_ROW of each row's largest |gradient| of its plain version, equal
+    bits on two launches; times and bounds on PERF.md §6's basis."""
+    import torch
+
+    cargs, bargs = stage1_view_inputs(eng, cfg_b)
+    counts, attr, tile = cargs[0], cargs[3], cargs[5]
+    o1, nc1 = composite_cuda.composite_fwd(*cargs)
+    o0, nc0 = composite_cuda.composite_fwd_plain(*cargs)
+    _, _, st_f = composite_cuda.composite_fwd_counts(*cargs)
+    _, _, model = composite_cuda.composite_fwd_cull_plain(*cargs)
+    torch.cuda.synchronize()
+    T, P = counts.shape[0], tile * tile
+    fwd_err = float((o1 - o0).abs().max())
+    if not (torch.equal(o1, o0) and torch.equal(nc1, nc0)):
+        problems.append(f"stage-1 composite_fwd: max |dout| {fwd_err}, "
+                        f"n_contrib differs at {int((nc1 != nc0).sum())} "
+                        "pixels (tolerance: exact)")
+    if (st_f["evaluated"] + st_f["culled"] != model["examined"]
+            or model["lost"]):
+        problems.append(f"stage-1 composite_fwd: evaluated "
+                        f"{st_f['evaluated']} + culled {st_f['culled']} vs "
+                        f"examined {model['examined']}, lost "
+                        f"{model['lost']}")
+    nbytes = (T * 8 + int(counts.sum()) * 4 + attr.numel() * 4
+              + T * 8 * P * 4)
+    fwd = dict(max_count=int(counts.max()), mean_count=float(
+                   counts.float().mean()), max_abs_err=fwd_err,
+               ms=time_ms(lambda: composite_cuda.composite_fwd(*cargs)),
+               plain_ms=time_ms(lambda: composite_cuda.composite_fwd_plain(
+                   *cargs), reps=2, warmup=1),
+               **fwd_bounds(model["examined"], model["gated"], nbytes),
+               pairs_examined=model["examined"], pairs_gated=model["gated"],
+               pairs_evaluated=st_f["evaluated"],
+               pairs_culled=st_f["culled"])
+    pargs = bargs[:9]
+    d1 = composite_cuda.composite_bwd(*bargs)
+    d2 = composite_cuda.composite_bwd(*bargs)
+    d0 = composite_cuda.composite_bwd_plain(*pargs)
+    torch.cuda.synchronize()
+    row_scale = d0[:10].abs().amax(1).clamp(min=1e-30)
+    row_err = ((d1[:10] - d0[:10]).abs().amax(1) / row_scale).tolist()
+    if not max(row_err) <= TOL_BWD_ROW:
+        problems.append(f"stage-1 composite_bwd: row errors {row_err} > "
+                        f"{TOL_BWD_ROW}")
+    if not torch.equal(d1, d2):
+        problems.append("stage-1 composite_bwd: two launches gave different "
+                        "bits")
+    walked, blended = composite_cuda.composite_bwd_work(*pargs)
+    b_nc, rows = bargs[5], bargs[9]
+    nsub = (-(-tile // min(tile, composite_cuda.BWD_SIDE))) ** 2
+    cell_bytes = int(counts.sum()) * nsub * 10 * 4
+    nbytes_b = (T * 8 + int(counts.sum()) * 4 + attr.numel() * 4
+                + T * P * 4 * 7 + rows.numel() * 4 + 2 * cell_bytes
+                + attr.numel() * 4)
+    bwd = dict(max_abs_err=float((d1 - d0).abs().max()),
+               row_err_vs_row_max=row_err,
+               deterministic=bool(torch.equal(d1, d2)),
+               ms=time_ms(lambda: composite_cuda.composite_bwd(*bargs)),
+               plain_ms=time_ms(lambda: composite_cuda.composite_bwd_plain(
+                   *pargs), reps=2, warmup=1),
+               **bwd_bounds(walked, blended, nbytes_b),
+               pairs_walked=walked, pairs_blended=blended,
+               max_n_contrib=int(b_nc.max()))
+    geo = dict(width=cfg_b.intr.width // 2, height=cfg_b.intr.height // 2,
+               tiles=T, tile_cap_K=cfg_b.render.max_per_tile)
+    print(json.dumps({"phase": "K1 at a stage-1 opt view", **geo,
+                      "composite_fwd": fwd, "composite_bwd": bwd,
+                      "opt_step_ms_by_stage": opt_step_times(eng, cfg_b)}),
+          flush=True)
+    return dict(composite_fwd=dict(**geo, **fwd),
+                composite_bwd=dict(**geo, **bwd))
+
+
+# tests/test_stress.py's thresholds: ATE below (m), mean PSNR above (dB)
+STRESS_GATES = {"depth_noise": (0.02, 18.0), "rotation_heavy": (0.05, None),
+                "sparse_smooth": (0.005, None), "kf_overflow": (0.01, 15.0)}
+
+
+def stress_phase(cuda_build, problems) -> dict:
+    """The four stress scenarios through FusedEngine.run on the card, with
+    the JAX runs' draws: tests/test_stress.py's thresholds as hard gates,
+    and agreement with the JAX run of each (REF_STRESS) under PERF.md §2."""
+    import numpy as np
+
+    from gs_icp_slam_torch.bench import STRESS, stress_config
+    from gs_icp_slam_torch.config import synthetic_config
+    from gs_icp_slam_torch.datasets import open_dataset
+    from gs_icp_slam_torch.slam import FusedEngine, RecordedDraws
+
+    out = {}
+    for name, kw in STRESS.items():
+        seq, cfg = stress_config(synthetic_config, open_dataset, **kw)
+        ref = REF_STRESS[name]
+        draws = RecordedDraws(ref["draws"])
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = FusedEngine(seq, cfg, device="cuda", draws=draws)
+        res = eng.run(eval_render=True, eval_stride=4)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts(cuda_build)
+        kf_rgb = eng.state.kf_rgb.float().reshape(
+            eng.state.kf_rgb.shape[0], -1)
+        textured = int((kf_rgb.std(dim=1) > 0).sum())
+        row = dict(ate_m=res.ate_rmse, psnr_mean=res.psnr,
+                   num_gaussians=res.num_gaussians, kf_total=res.kf_total,
+                   kf_count=res.kf_stored,
+                   vis_cap_dropped=res.vis_cap_dropped,
+                   tile_cap_dropped=res.tile_cap_dropped,
+                   kf_slots_textured=textured, seconds=seconds,
+                   launches=launches)
+        print(json.dumps({"phase": f"stress {name}", **row}), flush=True)
+        out[name] = row
+        check_launched(f"stress {name}", launches,
+                       ("nn1", "knn", "composite_fwd", "composite_bwd"),
+                       problems)
+        ate_max, psnr_min = STRESS_GATES[name]
+        if not (np.isfinite(res.poses).all() and res.ate_rmse < ate_max):
+            problems.append(f"stress {name}: ATE {res.ate_rmse} not below "
+                            f"{ate_max}")
+        if psnr_min is not None and not res.psnr > psnr_min:
+            problems.append(f"stress {name}: PSNR {res.psnr} not above "
+                            f"{psnr_min}")
+        if name == "kf_overflow" and not (
+                res.kf_total > res.kf_stored == 4 and textured == 4):
+            problems.append(f"stress {name}: {res.kf_total} keyframes, "
+                            f"{res.kf_stored} stored, {textured} textured")
+        if not abs(res.ate_rmse - ref["ate_m"]) <= TOL_ATE_M:
+            problems.append(f"stress {name}: ATE {res.ate_rmse} vs JAX "
+                            f"{ref['ate_m']}")
+        if not abs(res.psnr - ref["psnr_mean"]) <= TOL_PSNR_DB:
+            problems.append(f"stress {name}: PSNR {res.psnr} vs JAX "
+                            f"{ref['psnr_mean']}")
+        for key in ("num_gaussians", "kf_total", "kf_count"):
+            if row[key] != ref[key]:
+                problems.append(f"stress {name}: {key} {row[key]} vs JAX "
+                                f"{ref[key]}")
+        for key in ("vis_cap_dropped", "tile_cap_dropped"):
+            if row[key] > ref[key]:
+                problems.append(f"stress {name}: {key} {row[key]} above "
+                                f"JAX's {ref[key]}")
+        if draws.used != len(ref["draws"]):
+            problems.append(f"stress {name}: {draws.used} draws taken, the "
+                            f"JAX run took {len(ref['draws'])}")
+    return out
+
+
+def maintenance_phase(eng, problems) -> dict:
+    """compact (with Adam's moments) and densify_clone_split on path C's
+    final map, on the card and on the CPU with the same split noise: equal
+    (split rows' positions within TOL_SPLIT_M).  The trigger is each
+    slot's Adam first moment of xyz, by norm; the public function draws its
+    noise on the card once more."""
+    import torch
+
+    from gs_icp_slam_torch.models import gaussian_map as gm
+
+    m, adam = eng.state.gmap, eng.state.adam
+    grad = adam.m["xyz"].norm(dim=1)
+    thr = float(torch.quantile(grad[m.live], 0.99))
+    eps = torch.randn((2, 4096, 3), generator=torch.Generator().manual_seed(9))
+    cpu = gm.GaussianMap(*(x.cpu() if torch.is_tensor(x) else x for x in m))
+    t0 = time.perf_counter()
+    got = gm.densify_clone_split_with_noise(m, grad, 2.5, eps.cuda(),
+                                            grad_threshold=thr)
+    want = gm.densify_clone_split_with_noise(cpu, grad.cpu(), 2.5, eps,
+                                             grad_threshold=thr)
+    drawn = gm.densify_clone_split(m, grad, 2.5, torch.Generator(
+        device="cuda").manual_seed(9), grad_threshold=thr)
+    trees = ({k: v for k, v in adam.m.items()},
+             {k: v for k, v in adam.v.items()})
+    c_got = gm.compact(got, extra_trees=[trees])
+    c_want = gm.compact(want, extra_trees=[tuple(
+        {k: v.cpu() for k, v in t.items()} for t in trees)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # a split row of a Gaussian whose covariance is not numerically
+    # positive definite has a NaN position, as in the JAX function: the
+    # NaN rows must match, the rest within TOL_SPLIT_M
+    pairs = ((got.xyz.cpu(), want.xyz), (c_got[0].xyz.cpu(), c_want[0].xyz))
+    nan_rows = int(want.xyz.isnan().any(1).sum())
+    same_nan = all(torch.equal(a.isnan(), b.isnan()) for a, b in pairs)
+    split_err = max(float((a - b).nan_to_num().abs().max())
+                    for a, b in pairs)
+    same = all(torch.equal(getattr(a, f).cpu(), getattr(b, f))
+               for a, b in ((got, want), (c_got[0], c_want[0]))
+               for f in m._fields if f not in ("n", "xyz"))
+    same &= all(torch.equal(a[k].cpu(), b[k]) for a, b in
+                zip(c_got[1], c_want[1]) for k in a)
+    out = dict(live_before=m.num_live, n_before=m.n,
+               grad_threshold=thr, n_after=got.n, live_after=got.num_live,
+               live_after_drawn_noise=drawn.num_live,
+               compact_n=c_got[0].n, split_rows_max_err_m=split_err,
+               split_rows_nan=nan_rows, seconds=seconds)
+    print(json.dumps({"phase": "densify_clone_split and compact on path "
+                      "C's map", **out}), flush=True)
+    if not (same and same_nan and got.n == want.n
+            and c_got[0].n == c_want[0].n and split_err <= TOL_SPLIT_M):
+        problems.append(f"maintenance: the card differs from the CPU "
+                        f"(other fields equal: {same}, NaN rows equal: "
+                        f"{same_nan}, positions within {split_err} m)")
+    if not got.n > m.n or drawn.n != got.n:
+        problems.append(f"maintenance: densify added {got.n - m.n} rows, "
+                        f"with drawn noise {drawn.n - m.n}")
+    return out
 
 
 def main() -> None:
@@ -690,7 +1240,9 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    # ---- 2. the two paths ----------------------------------------------
+    # ---- 2. the paths ---------------------------------------------------
+    phase_s = {"build": build_s}
+    t_phase = time.perf_counter()
     # frames made up front: synthesizing one costs ~0.1 s on the host,
     # set-up rather than the engine's time
     seq = InMemorySequence(open_dataset("synthetic", width=WIDTH,
@@ -752,6 +1304,8 @@ def main() -> None:
                                                      fps_cap=None))
     eng_c, res_c, launches_c, syncs, nn_args_c = run_path_c(
         seq, cfg_c, FusedEngine, RecordedDraws, cuda_build, problems)
+    phase_s["A, B, C (with evaluate)"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # ---- path D: the dense compositors' entry points ------------------
     dense = {}
@@ -787,6 +1341,25 @@ def main() -> None:
     for k in DENSE_KERNELS:
         if launches_d[k] <= 0:
             problems.append(f"path D: kernel {k} was not launched")
+    phase_s["D"] = time.perf_counter() - t_phase
+
+    # ---- map maintenance on path C's map; paths E, F1, F2 (the port
+    # bench at stages 0, 1, 2); the stress tier ----------------------------
+    t_phase = time.perf_counter()
+    maintenance_phase(eng_c, problems)
+    phase_s["maintenance"] = time.perf_counter() - t_phase
+    by_path = {}
+    for name in BENCH_PATHS:
+        t_phase = time.perf_counter()
+        by_path[name] = bench_path(name, card, cuda_build,
+                                   problems)["launches"]
+        phase_s[name] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    stress = stress_phase(cuda_build, problems)
+    phase_s["stress"] = time.perf_counter() - t_phase
+    by_path["stress"] = {k: sum(r["launches"][k] for r in stress.values())
+                         for k in launches_d}
+    t_phase = time.perf_counter()
 
     # ---- 3. kernels against their plain versions ------------------------
     dev = torch.device("cuda")
@@ -1081,6 +1654,12 @@ def main() -> None:
         cell_bytes=cell_bytes, run_rows=int(counts_b.sum()),
         max_n_contrib=int(nc_b.max())))
 
+    # K1-fwd and K1-bwd at a stage-1 opt view, nested under their rows
+    stage1 = stage1_k1_phase(eng_c, cfg_b, composite_cuda, problems)
+    for row in kernels:
+        if row["name"] in stage1:
+            row["stage1_view"] = stage1[row["name"]]
+
     # K4 on a real view: path B's frame-18 view binned at 16-pixel tiles,
     # the runs packed into dense blocks of 256
     vc, va, vntx, clipped, longest = k4_view_inputs(eng, res, cfg_b,
@@ -1096,6 +1675,11 @@ def main() -> None:
                       "mean_count": float(vc.float().mean())}), flush=True)
     kernels += dense_kernel_phases(dense, view, launches_d, composite_cuda,
                                    problems)
+    for row in kernels:
+        row["launches_by_path"] = {k: v[row["name"]]
+                                   for k, v in by_path.items()}
+    phase_s["kernels"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     if problems:
         for p in problems:

@@ -13,9 +13,11 @@ per-frame step with grid k-NN source covariances, capacity buckets, the
 reservoir keyframe store and `refine`), and the staged `SLAMEngine` —
 G-ICP tracking, keyframe insertion with covariance sharing, target
 export, mapping iterations (differentiable rendering, the SSIM/L1/depth
-loss, masked Adam, pruning) and evaluation renders; and every Pallas
-kernel of the JAX package, the dense compositors `make_composite` /
-`make_composite_dyn` included.
+loss, masked Adam, pruning) and evaluation renders, both at training
+stages 0-2; evaluation (PSNR, SSIM, LPIPS); map maintenance (`compact`,
+`densify_clone_split`); bench.py's run (`python -m
+gs_icp_slam_torch.bench`); and every Pallas kernel of the JAX package, the
+dense compositors `make_composite` / `make_composite_dyn` included.
 
 Layout:
   utils/     quaternion / SE(3) / camera / SH / point-cloud math, losses
@@ -25,7 +27,8 @@ Layout:
   slam/      the fused step and engine (fused.py, state.py), the staged
              engine
   datasets/  the procedural synthetic RGB-D sequence
-  eval/      ATE
+  eval/      ATE, image metrics (PSNR/SSIM/LPIPS), LPIPS fixtures
+  bench.py   bench.py's run through the port, one JSON line
 """
 
 __version__ = "0.1.0"

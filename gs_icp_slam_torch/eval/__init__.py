@@ -1,3 +1,6 @@
 from .ate import align_horn, ate_rmse
+from .image_metrics import SequenceMetrics, evaluate_sequence
+from .lpips import lpips, lpips_available
 
-__all__ = ["align_horn", "ate_rmse"]
+__all__ = ["SequenceMetrics", "align_horn", "ate_rmse", "evaluate_sequence",
+           "lpips", "lpips_available"]

@@ -19,6 +19,7 @@ from functools import lru_cache
 
 import torch
 
+from ..utils.quat import quat_to_rotmat
 from ..utils.sh import C0, eval_sh
 
 # Compositing constants of the CUDA rasterizer
@@ -67,6 +68,12 @@ def _max(x: torch.Tensor, c: float) -> torch.Tensor:
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(_max(x, lo), _scalar(hi, x.dtype, x.device))
+
+
+def covariance_3d(quat: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Sigma = R S S^T R^T from xyzw quaternion and linear scales."""
+    R = quat_to_rotmat(quat)
+    return torch.einsum("...ij,...j,...kj->...ik", R, scale * scale, R)
 
 
 def _cov3d_components(quat: torch.Tensor, scale: torch.Tensor):

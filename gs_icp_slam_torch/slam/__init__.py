@@ -1,8 +1,8 @@
 from .engine import SLAMEngine, SLAMResult
 from .fused import (FusedEngine, FusedStep, MappingPrimitives, RecordedDraws,
                     TorchDraws, make_fused_step, make_mapping_primitives)
-from .state import SLAMState, init_state
+from .state import SLAMState, copy_state, init_state
 
 __all__ = ["FusedEngine", "FusedStep", "MappingPrimitives", "RecordedDraws",
            "SLAMEngine", "SLAMResult", "SLAMState", "TorchDraws",
-           "init_state", "make_fused_step", "make_mapping_primitives"]
+           "copy_state", "init_state", "make_fused_step", "make_mapping_primitives"]

@@ -12,9 +12,10 @@ Per frame, as in the JAX engine (engine.py:261-331):
                                L1 + SSIM + depth loss, backward (K1-bwd),
                                masked Adam, pruning every prune_interval
 and `run()` runs `mapping_iters_final` more iterations, then renders every
-frame of the finished map for PSNR (kernel K1-fwd).  Training stages 1/2
-are not ported yet and raise NotImplementedError; `densify_enabled` is read
-by nothing, as in the JAX engine, which never calls densify.
+frame of the finished map for PSNR (kernel K1-fwd).  At training stages
+1/2 the mapping iterations render at half/quarter resolution
+(fused.make_mapping_primitives); `densify_enabled` is read by nothing, as
+in the JAX engine, which never calls densify.
 """
 from __future__ import annotations
 

@@ -38,7 +38,11 @@ the JAX step draws, the draws JAX throws away included: a keyframe index
 on every mapping iteration (fused.py:400-404) and a reservoir victim on
 every keyframe store (fused.py:489-491).  `TorchDraws` (a torch.Generator
 seeded from `seed`) is the default; `RecordedDraws` replays a recorded
-sequence, such as the JAX engine's.
+sequence, such as the JAX engine's.  The JAX state carries its PRNG key,
+so a step on a copy of the state leaves the original's draws alone; here
+the stream belongs to the engine, so a caller that steps a copy
+(`state.copy_state`) saves `draws.position()` first and `restore`s it
+afterwards.
 """
 from __future__ import annotations
 
@@ -75,18 +79,35 @@ class MappingPrimitives(NamedTuple):
     sh_concat: Callable  # params -> (C, (sh+1)^2, 3) SH coefficients
 
 
+def _downsample_gt(gt_img, gt_depth, sdiv: int):
+    """Ground truth at 1/sdiv resolution for training stages 1/2 (the
+    reference pre-computed pyramids, shared_objs.py:146-155): RGB (3, H, W)
+    by the area mean of sdiv x sdiv blocks, depth (H, W) by the nearest
+    sample (INTER_NEAREST, shared_objs.py:152-153), which keeps exact zeros
+    and with them the depth-validity mask; both cropped to whole blocks."""
+    if sdiv == 1:
+        return gt_img, gt_depth
+    sh_px, sw = gt_depth.shape[0] // sdiv, gt_depth.shape[1] // sdiv
+    img = gt_img[:, :sh_px * sdiv, :sw * sdiv].reshape(
+        3, sh_px, sdiv, sw, sdiv).mean(dim=(2, 4))
+    dep = gt_depth[:sh_px * sdiv:sdiv, :sw * sdiv:sdiv]
+    return img, dep
+
+
 def make_mapping_primitives(cfg: SLAMConfig, device="cuda",
                             n_cap: int | None = None) -> MappingPrimitives:
-    """Build the single-keyframe mapping step for a config (training
-    stage 0; other stages raise NotImplementedError) on one device.
+    """Build the single-keyframe mapping step for a config on one device.
 
     `n_cap`: the capacity bucket the step will see (the fused engine's
     buckets) — caps the per-view visible budget V, and with it the
-    per-tile capacity K, so that they track the map's scale."""
-    if cfg.opt.training_stage != 0:
-        raise NotImplementedError(
-            "training_stage > 0 (half/quarter-resolution mapping) arrives "
-            "with a later slice of the port")
+    per-tile capacity K, so that they track the map's scale.
+
+    Training stages 1/2 optimise at half/quarter resolution (the
+    reference's render_3 resolution switch, gaussian_renderer/__init__.py:
+    237-242): `opt_step` renders at width//sdiv x height//sdiv, sdiv =
+    2*stage, with the scaled focal lengths and centres, the full visible
+    capacity and K = max_per_tile, against the downsampled ground truth;
+    `raster` (evaluation) stays at full resolution."""
     intr, rc = cfg.intr, cfg.render
     lrs = map_lr_tree(cfg.opt)
     bg = torch.tensor(rc.bg_color, dtype=torch.float32,
@@ -101,6 +122,20 @@ def make_mapping_primitives(cfg: SLAMConfig, device="cuda",
         tile_span=rc.tile_span,
         tile_cap=tile_capacity(intr.width, intr.height, rc.tile_size,
                                rc.tile_span, v_cap, rc.max_per_tile))
+    stage = cfg.opt.training_stage
+    sdiv = 2 * stage if stage > 0 else 1
+    if stage > 0:
+        sw, sh_px = intr.width // sdiv, intr.height // sdiv
+        raster_opt = partial(
+            rasterize_tiled, sh_degree=cfg.map.sh_degree, width=sw,
+            height=sh_px, tile=rc.tile_size,
+            visible_cap=rc.visible_capacity, tile_span=rc.tile_span,
+            tile_cap=rc.max_per_tile)
+        ofx, ofy = fx / sdiv, fy / sdiv
+        ocx, ocy = (sw - 1) / 2.0, (sh_px - 1) / 2.0
+    else:
+        raster_opt = raster
+        ofx, ofy, ocx, ocy = fx, fy, rcx, rcy
 
     def sh_concat(params):
         return torch.cat([params["f_dc"][:, None, :], params["f_rest"]], 1)
@@ -109,10 +144,12 @@ def make_mapping_primitives(cfg: SLAMConfig, device="cuda",
         # rgb_u8 is channel-first (3, H, W) uint8
         gt_img = rgb_u8.to(torch.float32) / 255.0
         gt_depth = depth_raw / intr.depth_scale
-        out = raster(params["xyz"], params["rotation"],
-                     torch.exp(params["log_scaling"]),
-                     torch.sigmoid(params["opacity_logit"][:, 0]),
-                     sh_concat(params), w2c, live, bg, fx, fy, rcx, rcy)
+        gt_img, gt_depth = _downsample_gt(gt_img, gt_depth, sdiv)
+        out = raster_opt(params["xyz"], params["rotation"],
+                         torch.exp(params["log_scaling"]),
+                         torch.sigmoid(params["opacity_logit"][:, 0]),
+                         sh_concat(params), w2c, live, bg, ofx, ofy, ocx,
+                         ocy)
         loss, _ = mapping_loss(out.color, out.depth, gt_img, gt_depth,
                                lambda_dssim=cfg.opt.lambda_dssim,
                                depth_weight=cfg.opt.depth_loss_weight,
@@ -148,27 +185,49 @@ class TorchDraws:
     def __call__(self, maxval: int) -> int:
         return int(torch.randint(maxval, (), generator=self.gen))
 
+    def position(self) -> torch.Tensor:
+        """Where the stream stands: the generator's state."""
+        return self.gen.get_state()
+
+    def restore(self, pos: torch.Tensor) -> None:
+        self.gen.set_state(pos)
+
 
 class RecordedDraws:
     """Replays a recorded sequence of [maxval, value] pairs, in order.
     Raises if the step asks for another maxval than was recorded (the run
-    has taken another keyframe decision) or for more draws than there
-    are."""
+    has taken another keyframe decision) or, unless a source `then` is
+    given to continue from, for more draws than there are."""
 
-    def __init__(self, pairs):
+    def __init__(self, pairs, then=None):
         self.pairs = [(int(m), int(v)) for m, v in pairs]
         self.used = 0
+        self.then = then
 
     def __call__(self, maxval: int) -> int:
         if self.used >= len(self.pairs):
-            raise RuntimeError(f"draw {self.used}: the recording has only "
-                               f"{len(self.pairs)} draws")
+            if self.then is None:
+                raise RuntimeError(f"draw {self.used}: the recording has "
+                                   f"only {len(self.pairs)} draws")
+            self.used += 1
+            return self.then(maxval)
         m, v = self.pairs[self.used]
         if m != maxval:
             raise RuntimeError(f"draw {self.used}: maxval {maxval}, the "
                                f"recording has {m}")
         self.used += 1
         return v
+
+    def position(self):
+        """Where the stream stands: the draws taken (and the position of
+        the source it continues from)."""
+        return (self.used,
+                None if self.then is None else self.then.position())
+
+    def restore(self, pos) -> None:
+        self.used = pos[0]
+        if self.then is not None:
+            self.then.restore(pos[1])
 
 
 # ------------------------------------------------------------ the step ---
@@ -590,9 +649,30 @@ class FusedEngine:
             tile_cap_dropped=int(state.stat_pair_dropped))
 
     # -------------------------------------------------------------- extras
-    def evaluate(self, *args, **kwargs):
-        raise _not_ported("FusedEngine.evaluate (PSNR/SSIM/LPIPS)",
-                          "item 3, evaluation")
+    def evaluate(self, eval_stride: int = 1, poses=None, dump_dir=None):
+        """Full-sequence PSNR/SSIM/LPIPS at the final map and poses
+        (reference calc_2d_metric, mp_Mapper.py:335-420); LPIPS where
+        weights are available (eval/lpips.py)."""
+        from ..eval.image_metrics import evaluate_sequence
+
+        assert self.state is not None, "run() first"
+        state = self.state
+        params = map_params(state.gmap)
+        if poses is None:
+            poses = state.poses.cpu().numpy().astype(np.float64)
+
+        def render_frame(i):
+            depth, rgb = self._frame(i)
+            w2c = invert_se3(torch.tensor(poses[i], dtype=torch.float32,
+                                          device=self.device))
+            img, _ = self.fused.render_eval(params, state.gmap.live, w2c,
+                                            rgb, depth)
+            return img
+
+        return evaluate_sequence(render_frame, self.dataset,
+                                 len(self.dataset), stride=eval_stride,
+                                 depth_scale=self.cfg.intr.depth_scale,
+                                 dump_dir=dump_dir)
 
     def save_ply(self, path: str) -> int:
         raise _not_ported("FusedEngine.save_ply", "item 4, I/O")

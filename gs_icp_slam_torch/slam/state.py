@@ -10,11 +10,12 @@ Adam's `step` already are, so deciding on them costs no device sync.  The
 cap-drop statistics stay on the device (a running maximum, read once at
 the end of a run).  The JAX state's PRNG key has no counterpart here: the
 step takes its random draws from the draw source its engine passes in
-(slam/fused.py).
+(slam/fused.py), so a step on a `copy_state` copy moves the engine's draw
+stream unless the caller restores its position.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -67,3 +68,24 @@ def init_state(cfg, num_frames: int, pose0: np.ndarray,
         stat_vis_dropped=zero.clone(),
         stat_pair_dropped=zero.clone(),
     )
+
+
+def copy_state(state: SLAMState) -> SLAMState:
+    """A copy of the state that a step can run on without touching the
+    original: every tensor cloned (the Gaussian map, Adam's moments, the
+    target, the pose history and keyframe store, the statistics), the host
+    counters copied.  bench.py's copy_state: its warm-ups and its fps_live
+    run step copies.  The draw stream is the engine's, not the state's:
+    save `engine.draws.position()` before stepping a copy and restore it
+    afterwards (slam/fused.py)."""
+    def clone(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, tuple):  # GaussianMap, AdamState, GICPTarget
+            return type(x)(*(clone(v) for v in x))
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        return x
+
+    return SLAMState(**{f.name: clone(getattr(state, f.name))
+                        for f in fields(state)})

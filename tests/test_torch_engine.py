@@ -147,15 +147,23 @@ def test_add_gaussians_and_trackable_export():
                                    rtol=1e-6, atol=1e-6)
 
 
-def test_unported_options_raise():
-    """Training stages 1/2 (the fused-engine slice) are not ported: the
-    engine refuses them instead of ignoring them."""
+def test_staged_engine_at_stage_1():
+    """Training stage 1: the staged engine is built from the shared
+    mapping primitives, its opt step renders at half resolution, its
+    evaluation renders at full resolution, and a 2-frame run maps."""
     _, jcfg = _cfg()
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     seq = t_open_dataset("synthetic", width=W, height=H, num_frames=2)
-    bad = cfg.replace(opt=dataclasses.replace(cfg.opt, training_stage=1))
-    with pytest.raises(NotImplementedError, match="slice"):
-        TEngine(seq, bad, device="cpu")
+    cfg = cfg.replace(
+        opt=dataclasses.replace(cfg.opt, training_stage=1),
+        engine=dataclasses.replace(cfg.engine, mapping_iters_per_frame=1),
+        render=dataclasses.replace(cfg.render, tile_size=16,
+                                   max_per_tile=256))
+    eng = TEngine(seq, cfg, device="cpu")
+    assert eng.prim.raster.keywords["width"] == W
+    res = eng.run(eval_render=True)
+    assert eng.train_iter == 2
+    assert np.isfinite(res.poses).all() and np.isfinite(res.psnr)
 
 
 def test_densify_flag_is_read_by_nothing():

@@ -16,9 +16,13 @@ Tolerances, and why: poses atol 1e-4 m and per-frame PSNR within 0.05 dB
 (near-tie neighbour picks of the JAX CPU distance form, float32 sums in
 another order); Gaussian and keyframe counts, the live mask, the counters
 and the cap-drop stats exact (a difference would be another keyframe or
-pruning decision).
+pruning decision).  FusedEngine.evaluate on both finished runs: per-frame
+PSNR within 0.05 dB, SSIM within 1e-3 and LPIPS-alex (random weights)
+within 2e-3, the maps' drift rather than the metrics'.
 """
 import dataclasses
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +32,7 @@ import torch
 
 from gs_icp_slam_tpu.config import synthetic_config as j_synthetic_config
 from gs_icp_slam_tpu.datasets import open_dataset as j_open_dataset
+from gs_icp_slam_tpu.eval.lpips import make_random_weights
 from gs_icp_slam_tpu.slam import FusedEngine as JFused
 from gs_icp_slam_tpu.slam.fused import to_chw as j_to_chw
 from gs_icp_slam_tpu.slam.state import init_state as j_init_state
@@ -132,6 +137,39 @@ def test_fused_engine_matches_jax():
     np.testing.assert_allclose(ts.kf_w2c[:kc].numpy(),
                                np.asarray(js.kf_w2c)[:kc], atol=1e-4)
     _check_step_from_identical_state(jeng)
+    _check_evaluate(jeng, teng)
+
+
+def _check_evaluate(jeng, teng):
+    """FusedEngine.evaluate on both finished runs: per-frame PSNR within
+    0.05 dB (the runs' tolerance) and SSIM within 1e-3 (the two maps
+    differ by the runs' float32 drift, not by the metric), LPIPS-alex on
+    random weights within rtol 1e-2 (chip_smoke.py's TOL_LPIPS_REL; the
+    values are ~2e-3 and were seen to differ by at most 2e-5 of
+    themselves); then at the JAX run's poses on the port's map, stride
+    2, with the comparison PNGs written."""
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/alex.npz"
+        make_random_weights(path, seed=0, net="alex")
+        mp = pytest.MonkeyPatch()
+        mp.setenv("GS_LPIPS_WEIGHTS", path)
+        try:
+            jm, tm = jeng.evaluate(), teng.evaluate()
+        finally:
+            mp.undo()
+        assert tm.per_frame_psnr.shape == (FRAMES,) and tm.lpips is not None
+        np.testing.assert_allclose(tm.per_frame_psnr, jm.per_frame_psnr,
+                                   atol=0.05)
+        np.testing.assert_allclose(tm.per_frame_ssim, jm.per_frame_ssim,
+                                   atol=1e-3)
+        np.testing.assert_allclose(tm.per_frame_lpips, jm.per_frame_lpips,
+                                   rtol=1e-2)
+        tm2 = teng.evaluate(eval_stride=2, poses=np.asarray(jeng.state.poses),
+                            dump_dir=f"{d}/dump")
+        assert tm2.lpips is None and tm2.per_frame_psnr.shape == (3,)
+        np.testing.assert_allclose(tm2.per_frame_psnr, tm.per_frame_psnr[::2],
+                                   atol=0.05)
+        assert len(os.listdir(f"{d}/dump")) == 1  # frame 0
 
 
 def _check_step_from_identical_state(jeng):
@@ -218,20 +256,31 @@ def test_draw_sources():
         rec(4)  # another maxval than recorded: another keyframe decision
 
 
-@pytest.mark.parametrize("what", ["evaluate", "save_ply", "viewer",
-                                  "training_stage"])
+@pytest.mark.parametrize("what", ["save_ply", "viewer"])
 def test_unported_options_raise(what):
     jseq, jcfg = _cfg()
     tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     tseq = t_open_dataset("synthetic", width=W, height=H, num_frames=2)
     with pytest.raises(NotImplementedError):
-        if what == "training_stage":
-            TFused(tseq, tcfg.replace(opt=dataclasses.replace(
-                tcfg.opt, training_stage=1)), device="cpu")
         eng = TFused(tseq, tcfg, device="cpu")
-        if what == "evaluate":
-            eng.evaluate()
-        elif what == "save_ply":
+        if what == "save_ply":
             eng.save_ply("map.ply")
         else:
             eng.run(viewer=object())
+
+
+def test_fused_engine_at_stage_1():
+    """Training stage 1: the engine is built, its opt step renders at half
+    resolution with K = max_per_tile, and a 2-frame run maps (evaluation
+    stays at full resolution)."""
+    _, jcfg = _cfg()
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    tcfg = tcfg.replace(opt=dataclasses.replace(tcfg.opt, training_stage=1),
+                        engine=dataclasses.replace(tcfg.engine,
+                                                   mapping_iters_final=0))
+    tseq = t_open_dataset("synthetic", width=W, height=H, num_frames=2)
+    eng = TFused(tseq, tcfg, device="cpu", draws=TorchDraws(2))
+    res = eng.run(eval_render=True)
+    assert eng.state.train_iter == 2 * ITERS
+    assert np.isfinite(res.poses).all() and np.isfinite(res.psnr)
+    assert res.tile_cap_dropped == 0 and res.vis_cap_dropped == 0
