@@ -70,8 +70,20 @@
    (600x340, 209 tiles of 32, K 4,096), timed beside their bounds;
    K2 and K3 above 2^20 references also beside one library call
    (cdist + min / topk) each; each phase's seconds;
+   path G, the command line as a user runs it: the 36 frames written in
+   Replica's layout (JPEG colour, uint16 PNG depth, traj.txt,
+   caminfo.txt), `python -m gs_icp_slam_torch run` on them (the Replica
+   preset with bench.py's mapping settings, --save_results, a checkpoint)
+   held bit for bit to FusedEngine.run on the same config and seed; a
+   run autosaving at frame 12 and stopped there, resumed from the file by
+   a new engine, within TOL_RESUME_M of the uninterrupted run; `render`
+   of scene.ply along trajectory.npy (stride 6) with frame 18 held to the
+   CPU's plain render, and `eval` of the renders against themselves; the
+   network viewer serving a loopback client's 1200x680 request during an
+   8-frame run, held to the CPU's render of the served map; checkpoint
+   bytes, write and read times, save_ply and render times;
 5. prints a "kernels" JSON line (each row with its launches on paths
-   A-F and the stress runs) and, as the last line,
+   A-G and the stress runs) and, as the last line,
    {"ok": true, "device": {...}}.  The card's name and power limit
    (nvidia-smi) is the first line of output.
 
@@ -1204,6 +1216,403 @@ def maintenance_phase(eng, problems) -> dict:
     return out
 
 
+# ---- path G: the command line as a user runs it ------------------------
+
+# tolerances of path G: a resumed run's poses against the uninterrupted
+# run's (the same state and draw position; bit-equal where every launch
+# is deterministic), and a card render against the CPU's plain path for
+# the same map and pose (float32 projection arithmetic rounds differently
+# on the two devices; the uint8 rounding shows it in few pixels)
+TOL_RESUME_M = 1e-5
+TOL_U8_LEVELS, TOL_U8_PIXELS = 1, 1e-3
+
+
+def write_replica_dir(seq, root: str) -> str:
+    """The synthetic sequence in Replica's layout (ReplicaSequence reads
+    it): images/frame%06d.jpg colour at JPEG quality 95,
+    depth_images/depth%06d.png uint16 raw depth (the sequence's depth
+    scale), traj.txt one flattened c2w per line; and caminfo.txt naming
+    replica with the sequence's intrinsics.  Returns caminfo.txt's path."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "depth_images"))
+    rows = []
+    for i in range(len(seq)):
+        fr = seq[i]
+        Image.fromarray(fr.rgb).save(
+            os.path.join(root, "images", f"frame{i:06d}.jpg"), quality=95)
+        Image.fromarray(np.round(fr.depth).astype(np.uint16)).save(
+            os.path.join(root, "depth_images", f"depth{i:06d}.png"))
+        rows.append(" ".join(repr(float(v)) for v in fr.gt_c2w.reshape(-1)))
+    with open(os.path.join(root, "traj.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    intr = seq.intr
+    caminfo = os.path.join(root, "caminfo.txt")
+    with open(caminfo, "w") as f:
+        f.write("# camera\n# W H fx fy cx cy depth_scale depth_trunc type\n"
+                f"{intr.width} {intr.height} {intr.fx!r} {intr.fy!r} "
+                f"{intr.cx!r} {intr.cy!r} {intr.depth_scale!r} "
+                f"{intr.depth_trunc!r} replica\n")
+    return caminfo
+
+
+def cli_main(argv) -> tuple:
+    """gs_icp_slam_torch.cli.main(argv) on the card: (its exit code, what
+    it printed, the seconds it took); the printed lines are echoed."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gs_icp_slam_torch.cli import main as cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"  cli: {line}", flush=True)
+    return rc, buf.getvalue(), seconds
+
+
+def u8_agreement(a, b) -> dict:
+    """Two uint8 images: the largest level difference and the share of
+    pixels that differ at all."""
+    import numpy as np
+
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return dict(max_levels=int(d.max()),
+                pixels_differing=float((d.max(axis=-1) > 0).mean()))
+
+
+def u8_within(agree) -> bool:
+    return (agree["max_levels"] <= TOL_U8_LEVELS
+            and agree["pixels_differing"] <= TOL_U8_PIXELS)
+
+
+def path_g(seq, card, cuda_build, problems) -> dict:
+    """Path G: the command line as a user runs it, on the card, at
+    bench.py's geometry.  The synthetic sequence written in Replica's
+    layout; `run` (the Replica preset with bench.py's mapping settings,
+    --save_results, a checkpoint) held bit for bit to FusedEngine.run on
+    the same config and seed; a run autosaving at frame 12 and stopped
+    there, resumed from the file by a new engine, held to the
+    uninterrupted run; `render` of scene.ply along trajectory.npy at
+    stride 6, one frame held to the CPU's plain render, and `eval` of the
+    renders against themselves; FusedEngine.run with a NetworkGUI over 8
+    frames, serving a loopback client's 1200x680 request, held to the
+    CPU's render of the served map.  Returns the launches of every step,
+    summed per kernel."""
+    import os
+    import shutil
+    import socket
+    import threading
+
+    import numpy as np
+    import PIL
+    import torch
+    from PIL import Image
+
+    from gs_icp_slam_torch.config import parse_caminfo, replica_config
+    from gs_icp_slam_torch.datasets import ReplicaSequence
+    from gs_icp_slam_torch.eval.offline import render_ply_sequence
+    from gs_icp_slam_torch.io import checkpoint as ckpt
+    from gs_icp_slam_torch.io.ply import load_ply
+    from gs_icp_slam_torch.slam import FusedEngine
+    from gs_icp_slam_torch.viz import network_gui
+
+    g = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "path_g")
+    shutil.rmtree(g, ignore_errors=True)
+    data, out = os.path.join(g, "replica"), os.path.join(g, "out")
+    t0 = time.perf_counter()
+    caminfo = write_replica_dir(seq, data)
+    print(json.dumps({"path": "G", "step": "input", "form": "replica",
+                      "layout": "images/frame%06d.jpg (JPEG q95), "
+                      "depth_images/depth%06d.png (uint16), traj.txt, "
+                      "caminfo.txt", "pil": PIL.__version__,
+                      "frames": len(seq), "seconds":
+                      time.perf_counter() - t0}), flush=True)
+    total = {}
+
+    def counted(step, kernels):
+        launches = launch_counts(cuda_build)
+        check_launched(f"path G {step}", launches, kernels, problems)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return launches
+
+    # ---- run, through the command line and directly ---------------------
+    ck_end = os.path.join(out, "checkpoint.npz")
+    cuda_build.reset_launch_counts()
+    rc, printed, cli_s = cli_main([
+        "run", "--dataset_path", data, "--config", caminfo, "--frames",
+        str(FRAMES), "--unlimited", "--mapping_iters_per_frame",
+        str(MAPPING_ITERS), "--init_opacity", "0.5", "--feature_lr", "1e-2",
+        "--capacity", str(1 << 18), "--save_results", "--output_path", out,
+        "--checkpoint_path", ck_end])
+    run_launches = counted("run", ("nn1", "knn", "composite_fwd",
+                                   "composite_bwd"))
+    if rc != 0:
+        problems.append(f"path G: run exited {rc}")
+    with open(os.path.join(out, "results.json")) as f:
+        results = json.load(f)
+    traj = np.load(os.path.join(out, "trajectory.npy"))
+    with np.load(ck_end) as z:  # reads these members only
+        end = {k: int(z[f"s.{k}"]) for k in (
+            "kf_total", "kf_count", "stat_vis_dropped", "stat_pair_dropped")}
+
+    intr, kind = parse_caminfo(caminfo)
+    cfg = replica_config(intr)
+    cfg = cfg.replace(
+        map=dataclasses.replace(cfg.map, capacity=1 << 18, init_opacity=0.5),
+        opt=dataclasses.replace(cfg.opt, feature_lr=1e-2),
+        engine=dataclasses.replace(cfg.engine, fps_cap=None,
+                                   mapping_iters_per_frame=MAPPING_ITERS))
+    dataset = ReplicaSequence(data, intr=intr, max_frames=FRAMES)
+    cuda_build.reset_launch_counts()
+    direct = FusedEngine(dataset, cfg, seed=0, device="cuda")
+    res = direct.run(eval_render=True)
+    metrics = direct.evaluate(eval_stride=1, poses=res.poses)
+    counted("direct run", ("nn1", "knn", "composite_fwd", "composite_bwd"))
+    st = direct.state
+    t0 = time.perf_counter()
+    n_rows = direct.save_ply(os.path.join(g, "direct.ply"))
+    save_ply_s = time.perf_counter() - t0
+    with open(os.path.join(g, "direct.ply"), "rb") as f:
+        direct_ply = f.read()
+    with open(os.path.join(out, "scene.ply"), "rb") as f:
+        same_ply = f.read() == direct_ply
+    same = dict(
+        trajectory=bool(np.array_equal(traj, res.poses)), ply=same_ply,
+        num_gaussians=results["num_gaussians"] == res.num_gaussians,
+        frames=results["frames"] == len(res.poses) == FRAMES,
+        ate_rmse_cm=results["ate_rmse_cm"] == res.ate_rmse * 100,
+        psnr=results["psnr"] == metrics.psnr,
+        ssim=results["ssim"] == metrics.ssim,
+        kf_total=end["kf_total"] == st.kf_total,
+        kf_count=end["kf_count"] == st.kf_count,
+        vis_cap_dropped=end["stat_vis_dropped"] == res.vis_cap_dropped,
+        tile_cap_dropped=end["stat_pair_dropped"] == res.tile_cap_dropped)
+    print(json.dumps({
+        "path": "G", "step": "run", "entry": "gs_icp_slam_torch.cli.main "
+        "run", "card": card, "dataset_type": kind, "exit_code": rc,
+        "printed_fps_line": printed.splitlines()[0], "results": results,
+        "cli_seconds": cli_s, "direct_fps": res.fps,
+        "direct_ate_m": res.ate_rmse, "direct_kf_total": res.kf_total,
+        "equal_to_direct_run": same, "save_ply_rows": n_rows,
+        "save_ply_bytes": len(direct_ply), "save_ply_s": save_ply_s,
+        "launches": run_launches}), flush=True)
+    for key, ok in same.items():
+        if not ok:
+            problems.append(f"path G: run's {key} differs from the direct "
+                            "FusedEngine run's")
+    if kind != "replica" or not printed.startswith("System FPS: "):
+        problems.append(f"path G: run read a {kind} caminfo and printed "
+                        f"{printed.splitlines()[:1]}")
+
+    # ---- autosave at frame 12, stop, resume -----------------------------
+    ck12 = os.path.join(g, "autosave.npz")
+    save = ckpt.save_fused_state
+    stop = {}
+
+    class Stop(Exception):
+        pass
+
+    def save_then_stop(state, path, draws=None, buckets=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save(state, path, draws, buckets)
+        stop.update(frame_idx=state.frame_idx,
+                    write_s=time.perf_counter() - t)
+        raise Stop
+
+    cuda_build.reset_launch_counts()
+    ckpt.save_fused_state = save_then_stop
+    try:
+        FusedEngine(dataset, cfg, seed=0, device="cuda").run(
+            eval_render=False, checkpoint_every=12, checkpoint_path=ck12)
+    except Stop:
+        pass
+    finally:
+        ckpt.save_fused_state = save
+    load = ckpt.load_fused_state
+
+    def timed_load(*a, **kw):
+        t = time.perf_counter()
+        state = load(*a, **kw)
+        torch.cuda.synchronize()
+        stop["read_s"] = time.perf_counter() - t
+        return state
+
+    resumed = FusedEngine(dataset, cfg, seed=0, device="cuda")
+    ckpt.load_fused_state = timed_load  # the engine imports it in run()
+    try:
+        res_r = resumed.run(eval_render=False, resume_from=ck12)
+    finally:
+        ckpt.load_fused_state = load
+    resume_launches = counted("resume", ("nn1", "knn", "composite_fwd",
+                                         "composite_bwd"))
+    pose_err = float(np.abs(res_r.poses - res.poses).max())
+    counts_equal = (res_r.num_gaussians, res_r.kf_total, res_r.kf_stored) \
+        == (res.num_gaussians, res.kf_total, res.kf_stored)
+    print(json.dumps({
+        "path": "G", "step": "resume", "card": card,
+        "stopped_after_save_at_frame": stop.get("frame_idx"),
+        "checkpoint_bytes": os.path.getsize(ck12),
+        "checkpoint_write_s": stop.get("write_s"),
+        "checkpoint_read_s": stop.get("read_s"), "max_pose_err_m": pose_err,
+        "bit_equal": bool(np.array_equal(res_r.poses, res.poses)),
+        "counts_equal": counts_equal, "launches": resume_launches}),
+        flush=True)
+    if stop.get("frame_idx") != 12:
+        problems.append(f"path G: the autosave ran at frame "
+                        f"{stop.get('frame_idx')}, not 12")
+    if not (pose_err <= TOL_RESUME_M and counts_equal):
+        problems.append(f"path G: the resumed run's poses differ by "
+                        f"{pose_err} m (tolerance {TOL_RESUME_M}), counts "
+                        f"equal: {counts_equal}")
+
+    # ---- render and eval --------------------------------------------------
+    renders = os.path.join(g, "renders")
+    cuda_build.reset_launch_counts()
+    rc_r, _, render_s = cli_main([
+        "render", "--ply", os.path.join(out, "scene.ply"), "--trajectory",
+        os.path.join(out, "trajectory.npy"), "--output_path", renders,
+        "--width", str(intr.width), "--height", str(intr.height), "--fx",
+        repr(intr.fx), "--fy", repr(intr.fy), "--stride", "6"])
+    render_launches = counted("render", ("composite_fwd",))
+    names = sorted(os.listdir(renders))
+    t = time.perf_counter()  # again, warm: the PLY read and the renders
+    render_ply_sequence(os.path.join(out, "scene.ply"), traj,
+                        os.path.join(g, "renders_warm"), intr.width,
+                        intr.height, intr.fx, intr.fy, stride=6)
+    warm_s = time.perf_counter() - t
+    t = time.perf_counter()
+    render_ply_sequence(os.path.join(out, "scene.ply"), traj[[18]],
+                        os.path.join(g, "cpu_render"), intr.width,
+                        intr.height, intr.fx, intr.fy, device="cpu")
+    cpu_render_s = time.perf_counter() - t
+    card_img = np.asarray(Image.open(os.path.join(renders, "000018.png")))
+    cpu_img = np.asarray(Image.open(os.path.join(g, "cpu_render",
+                                                 "000000.png")))
+    agree = u8_agreement(card_img, cpu_img)
+    rc_e, printed_e, eval_s = cli_main([
+        "eval", "--renders", renders, "--gt", renders, "--output_json",
+        os.path.join(g, "eval.json")])
+    with open(os.path.join(g, "eval.json")) as f:
+        ev = json.load(f)["mean"]
+    print(json.dumps({
+        "path": "G", "step": "render, eval", "card": card,
+        "frames_rendered": names, "render_s": render_s,
+        "render_s_per_frame": render_s / max(len(names), 1),
+        "render_warm_s_per_frame": warm_s / max(len(names), 1),
+        "frame_18_vs_cpu_plain": agree, "cpu_render_s": cpu_render_s,
+        "eval_self": ev, "eval_s": eval_s,
+        "ply_rows": len(load_ply(os.path.join(out, "scene.ply"))["xyz"]),
+        "launches": render_launches}), flush=True)
+    if rc_r != 0 or names != [f"{i:06d}.png" for i in range(0, FRAMES, 6)]:
+        problems.append(f"path G: render exited {rc_r} and wrote {names}")
+    if render_launches["composite_fwd"] != len(names):
+        problems.append(f"path G: render launched composite_fwd "
+                        f"{render_launches['composite_fwd']} times for "
+                        f"{len(names)} frames")
+    if not u8_within(agree):
+        problems.append(f"path G: the card's render of frame 18 differs "
+                        f"from the CPU's: {agree}")
+    if rc_e != 0 or not (ev["psnr"] > 60 and ev["ssim"] > 0.999):
+        problems.append(f"path G: eval exited {rc_e} with {ev}")
+
+    # ---- the network viewer ---------------------------------------------
+    served = []
+    make = network_gui.make_map_render_fn
+
+    def recording(params, live, sh_degree, bg=None):
+        fn = make(params, live, sh_degree, bg)
+
+        def render(*a):
+            served.append(({k: v.to("cpu", copy=True)
+                            for k, v in params.items()},
+                           live.to("cpu", copy=True), sh_degree, bg, a))
+            return fn(*a)
+
+        return render
+
+    w2c = np.linalg.inv(res.poses[4]).astype(np.float32)
+    view = w2c.T.copy()  # the viewer's row-vector, y/z-flipped convention
+    view[:, 1] *= -1.0
+    view[:, 2] *= -1.0
+    w, h = intr.width, intr.height
+    request = {
+        "resolution_x": w, "resolution_y": h, "train": True,
+        "fov_y": intr.fovy, "fov_x": intr.fovx, "z_near": 0.01,
+        "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+        "keep_alive": True, "scaling_modifier": 1.0,
+        "view_matrix": [float(v) for v in view.reshape(-1)],
+        "view_projection_matrix": [float(v) for v in np.eye(4).reshape(-1)]}
+    gui = network_gui.NetworkGUI(port=0, verify=data)
+    got = {}
+
+    def client():
+        def recv(c, n):
+            b = b""
+            while len(b) < n:
+                part = c.recv(n - len(b))
+                if not part:
+                    raise ConnectionError("the server closed")
+                b += part
+            return b
+
+        with socket.create_connection(("127.0.0.1", gui.port),
+                                      timeout=120) as c:
+            raw = json.dumps(request).encode()
+            c.sendall(len(raw).to_bytes(4, "little") + raw)
+            got["image"] = recv(c, w * h * 3)
+            got["verify"] = recv(c, int.from_bytes(recv(c, 4), "little"))
+
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    network_gui.make_map_render_fn = recording
+    cuda_build.reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        FusedEngine(ReplicaSequence(data, intr=intr, max_frames=8), cfg,
+                    seed=0, device="cuda").run(eval_render=False,
+                                               net_gui=gui)
+    finally:
+        network_gui.make_map_render_fn = make
+        gui.close()
+        thread.join(timeout=120)
+    viewer_s = time.perf_counter() - t
+    viewer_launches = counted("viewer", ("nn1", "knn", "composite_fwd",
+                                         "composite_bwd"))
+    agree_v = None
+    if len(served) == 1 and "image" in got:
+        params, live, sh_degree, bg, args = served[0]
+        want = make(params, live, sh_degree, bg)(*args)
+        agree_v = u8_agreement(np.frombuffer(got["image"], np.uint8)
+                               .reshape(h, w, 3), want)
+    print(json.dumps({
+        "path": "G", "step": "network viewer", "card": card, "frames": 8,
+        "requests_served": len(served), "request": [w, h],
+        "canvas": [-(-w // 64) * 64, -(-h // 64) * 64],
+        "splats_in_served_map": int(served[0][1].sum()) if served else None,
+        "served_vs_cpu_plain": agree_v, "seconds": viewer_s,
+        "launches": viewer_launches}), flush=True)
+    if thread.is_alive() or got.get("verify") != data.encode():
+        problems.append("path G: the viewer's client got no answer")
+    if agree_v is None or not u8_within(agree_v):
+        problems.append(f"path G: {len(served)} requests served; the served "
+                        f"image against the CPU's: {agree_v}")
+    return total
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1359,6 +1768,9 @@ def main() -> None:
     phase_s["stress"] = time.perf_counter() - t_phase
     by_path["stress"] = {k: sum(r["launches"][k] for r in stress.values())
                          for k in launches_d}
+    t_phase = time.perf_counter()
+    by_path["G"] = path_g(seq, card, cuda_build, problems)
+    phase_s["G"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---- 3. kernels against their plain versions ------------------------

@@ -16,8 +16,11 @@ export, mapping iterations (differentiable rendering, the SSIM/L1/depth
 loss, masked Adam, pruning) and evaluation renders, both at training
 stages 0-2; evaluation (PSNR, SSIM, LPIPS); map maintenance (`compact`,
 `densify_clone_split`); bench.py's run (`python -m
-gs_icp_slam_torch.bench`); and every Pallas kernel of the JAX package, the
-dense compositors `make_composite` / `make_composite_dyn` included.
+gs_icp_slam_torch.bench`); the command line (`python -m gs_icp_slam_torch
+run/render/eval`) with PLY export, checkpoints and resume, the Replica /
+TUM / offline-scene loaders and the live viewers; and every Pallas kernel
+of the JAX package, the dense compositors `make_composite` /
+`make_composite_dyn` included.
 
 Layout:
   utils/     quaternion / SE(3) / camera / SH / point-cloud math, losses
@@ -26,8 +29,13 @@ Layout:
   models/    the fixed-capacity Gaussian map and masked Adam
   slam/      the fused step and engine (fused.py, state.py), the staged
              engine
-  datasets/  the procedural synthetic RGB-D sequence
-  eval/      ATE, image metrics (PSNR/SSIM/LPIPS), LPIPS fixtures
+  datasets/  the synthetic RGB-D sequence, Replica and TUM loaders, the
+             offline Scene loaders (COLMAP, SLAM capture, Blender)
+  eval/      ATE, image metrics (PSNR/SSIM/LPIPS), LPIPS fixtures, the
+             offline render of a saved PLY
+  io/        PLY import/export, checkpoints, the COLMAP reader
+  viz/       the SIBR remote-viewer bridge and the rerun.io logger
+  cli.py     `python -m gs_icp_slam_torch run/render/eval`
   bench.py   bench.py's run through the port, one JSON line
 """
 

@@ -125,6 +125,21 @@ class SLAMConfig:
         return dataclasses.replace(self, **kw)
 
 
+def parse_caminfo(path: str) -> tuple[Intrinsics, str]:
+    """Parse the reference caminfo.txt (line 3: W H fx fy cx cy depth_scale
+    depth_trunc dataset_type; gs_icp_slam.py:52-62)."""
+    with open(path) as f:
+        lines = f.readlines()
+    parts = lines[2].split()
+    intr = Intrinsics(
+        width=int(parts[0]), height=int(parts[1]),
+        fx=float(parts[2]), fy=float(parts[3]),
+        cx=float(parts[4]), cy=float(parts[5]),
+        depth_scale=float(parts[6]), depth_trunc=float(parts[7]),
+    )
+    return intr, parts[8]
+
+
 def replica_config(intr: Optional[Intrinsics] = None) -> SLAMConfig:
     """Replica tuning from replica.sh:135-142."""
     intr = intr or Intrinsics(1200, 680, 600.0, 600.0, 599.5, 339.5,

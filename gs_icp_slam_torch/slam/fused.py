@@ -498,12 +498,6 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
 
 # ------------------------------------------------------------ engine -----
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, modules still to port: "
-        f"{item})")
-
-
 class FusedEngine:
     """The engine of bench.py's path: one fused step per frame, capacity
     buckets, the reservoir keyframe store and post-run refinement."""
@@ -555,7 +549,9 @@ class FusedEngine:
             self.state = self.fused.refine(self.state, n_bucket)
 
     def _frame(self, i: int):
-        fr = self.dataset[i]
+        return self._on_device(self.dataset[i])
+
+    def _on_device(self, fr):
         return (torch.from_numpy(np.asarray(fr.depth)).to(self.device),
                 to_chw(fr.rgb, self.device))
 
@@ -563,29 +559,53 @@ class FusedEngine:
             progress: bool = False, viewer=None, net_gui=None,
             checkpoint_every: int = 0, checkpoint_path: str = "",
             resume_from: str = ""):
+        """checkpoint_every/checkpoint_path: periodic full-state autosave
+        every N frames, with the draw source's position and the capacity
+        buckets in use (a crash loses at most N frames, not the run).
+        resume_from: continue a run from such a checkpoint (or the JAX
+        package's) — frames before its frame_idx are skipped, and the
+        draws and buckets continue from the saved ones where the file holds
+        them (else the buckets are re-picked from the map's size, as in
+        JAX).  viewer: a RerunLogger-like object (log_frame every frame;
+        log_points and log_render on each new keyframe); net_gui: a
+        NetworkGUI polled once a frame.  The live modes and the throttle
+        step one frame at a time."""
         from ..eval.ate import ate_rmse
         from .engine import SLAMResult
 
-        if viewer is not None or net_gui is not None:
-            raise _not_ported("the live viewers (viewer, net_gui)",
-                              "item 4, I/O, datasets, CLI, viewers")
-        if checkpoint_every or resume_from:
-            raise _not_ported("checkpoints (autosave and resume)",
-                              "item 4, I/O, datasets, CLI, viewers")
         dataset, cfg = self.dataset, self.cfg
         n = len(dataset)
-        f0 = dataset[0]
-        pose0 = np.asarray(
-            f0.gt_c2w if f0.gt_c2w is not None else np.eye(4), np.float32)
-        state = init_state(cfg, n, pose0, self.device)
+        buckets = None
+        if resume_from:
+            from ..io.checkpoint import load_fused_state, saved_buckets
+            state = load_fused_state(resume_from, self.device, self.draws)
+            if state.poses.shape[0] != n:
+                raise ValueError("checkpoint was written for a different "
+                                 "sequence length")
+            buckets = saved_buckets(resume_from)
+        else:
+            f0 = dataset[0]
+            pose0 = np.asarray(
+                f0.gt_c2w if f0.gt_c2w is not None else np.eye(4),
+                np.float32)
+            state = init_state(cfg, n, pose0, self.device)
+        if checkpoint_every and not checkpoint_path:
+            raise ValueError("checkpoint_every needs a checkpoint_path")
         fps_cap = cfg.engine.fps_cap
-        n_bucket, t_bucket = self._pick_buckets(0)
+        n_bucket, t_bucket = buckets or self._pick_buckets(state.gmap.n)
         chunk = cfg.engine.frames_per_dispatch
-        if fps_cap:
-            chunk = 1  # the throttle paces single frames
+        if viewer is not None or net_gui is not None or fps_cap:
+            chunk = 1  # live modes need per-frame results
+        viewer_kf_total = -1
         t0 = time.perf_counter()
-        i = 0
+        i = state.frame_idx
         while i < n:
+            if checkpoint_every and i > 0 and i % checkpoint_every < chunk:
+                # periodic autosave (a device -> host copy of the whole
+                # state; imported here so that a test can patch it)
+                from ..io.checkpoint import save_fused_state
+                save_fused_state(state, checkpoint_path, self.draws,
+                                 (n_bucket, t_bucket))
             if i % self.BUCKET_SYNC < chunk and i > 0:
                 n_bucket, t_bucket = self._pick_buckets(state.gmap.n)
             if chunk > 1 and i + chunk <= n:
@@ -597,9 +617,33 @@ class FusedEngine:
                     n_bucket, t_bucket)
                 i += chunk
                 continue
-            depth, rgb = self._frame(i)
+            fr = dataset[i]
+            depth, rgb = self._on_device(fr)
             state = self.fused.step(state, depth, rgb, i == n - 1, n_bucket,
                                     t_bucket)
+            if net_gui is not None:
+                # serve a pending SIBR remote-viewer request against the
+                # current map (reference run_viewer, mp_Mapper.py:272-294)
+                from ..viz.network_gui import make_map_render_fn
+                net_gui.poll(make_map_render_fn(
+                    map_params(state.gmap), state.gmap.live,
+                    cfg.map.sh_degree, cfg.render.bg_color))
+            if viewer is not None:
+                # the pose of frame i (a device sync: viewer mode trades
+                # FPS for live output, like the reference's streaming)
+                pose_i = state.poses[i]
+                viewer.log_frame(i, pose_i.cpu().numpy(), fr.rgb, fr.depth)
+                if state.kf_total != viewer_kf_total:
+                    # a keyframe: the trackable map points
+                    # (mp_Tracker.py:186-189) and the mapper's render of
+                    # this view (mp_Mapper.py:250-257)
+                    viewer_kf_total = state.kf_total
+                    tg = state.target
+                    viewer.log_points(i, tg.points.T[tg.valid].cpu().numpy())
+                    img, _ = self.fused.render_eval(
+                        map_params(state.gmap), state.gmap.live,
+                        invert_se3(pose_i), rgb, depth)
+                    viewer.log_render(i, img.cpu().numpy())
             if fps_cap:
                 # throttle to fps_cap on average (mp_Tracker.py:323-324)
                 target = t0 + (i + 1) / fps_cap
@@ -675,10 +719,26 @@ class FusedEngine:
                                  dump_dir=dump_dir)
 
     def save_ply(self, path: str) -> int:
-        raise _not_ported("FusedEngine.save_ply", "item 4, I/O")
+        """Export the live map in the 3DGS-ecosystem PLY layout
+        (gaussian_model.py:619-636); returns the rows written."""
+        from ..io.ply import save_ply as _save
+
+        assert self.state is not None, "run() first"
+        m = self.state.gmap
+        return _save(path, m.xyz, m.f_dc, m.f_rest, m.opacity_logit,
+                     m.log_scaling, m.rotation, mask=m.live)
 
     def save_checkpoint(self, path: str) -> None:
-        raise _not_ported("FusedEngine.save_checkpoint", "item 4, I/O")
+        """Write the full fused SLAMState and the draw source's position
+        as a resumable npz."""
+        from ..io.checkpoint import save_fused_state
+
+        assert self.state is not None, "run() first"
+        save_fused_state(self.state, path, self.draws)
 
     def load_checkpoint(self, path: str) -> None:
-        raise _not_ported("FusedEngine.load_checkpoint", "item 4, I/O")
+        """Read a fused SLAMState (either package's npz) onto the engine's
+        device; the draws continue from its position where it holds one."""
+        from ..io.checkpoint import load_fused_state
+
+        self.state = load_fused_state(path, self.device, self.draws)

@@ -122,7 +122,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for n in names:
             importlib.import_module(n)
         for n in ("bench", "eval.image_metrics", "eval.lpips",
-                  "eval.lpips_fixtures"):
+                  "eval.lpips_fixtures", "cli", "__main__", "io.ply",
+                  "io.checkpoint", "io.colmap", "datasets.replica",
+                  "datasets.tum", "datasets.scene", "eval.offline",
+                  "viz.network_gui", "viz.rerun_logger"):
             assert "gs_icp_slam_torch." + n in names, n
         import chip_smoke
         bad = [m for m in sys.modules
@@ -135,7 +138,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 24
+    assert int(r.stdout.split()[-1]) >= 48
 
 
 def test_no_import_statement_names_jax():

@@ -256,19 +256,6 @@ def test_draw_sources():
         rec(4)  # another maxval than recorded: another keyframe decision
 
 
-@pytest.mark.parametrize("what", ["save_ply", "viewer"])
-def test_unported_options_raise(what):
-    jseq, jcfg = _cfg()
-    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
-    tseq = t_open_dataset("synthetic", width=W, height=H, num_frames=2)
-    with pytest.raises(NotImplementedError):
-        eng = TFused(tseq, tcfg, device="cpu")
-        if what == "save_ply":
-            eng.save_ply("map.ply")
-        else:
-            eng.run(viewer=object())
-
-
 def test_fused_engine_at_stage_1():
     """Training stage 1: the engine is built, its opt step renders at half
     resolution with K = max_per_tile, and a 2-frame run maps (evaluation
