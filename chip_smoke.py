@@ -82,8 +82,27 @@
    network viewer serving a loopback client's 1200x680 request during an
    8-frame run, held to the CPU's render of the served map; checkpoint
    bytes, write and read times, save_ply and render times;
+   path H, multi-device mapping (gs_icp_slam_torch.parallel): H1,
+   FusedEngine on a world-1 mesh over NCCL in this process
+   (init_distributed, global_mesh), in dp ("auto" picks it) and fsdp, on
+   path C's scenario and draws (each iteration's batch draw repeats its
+   pick), then one refine call: dp and fsdp bit for bit, ATE within
+   TOL_H_ATE_M of path C and TOL_ATE_M of the JAX run, counts equal, PSNR
+   within TOL_H1_PSNR_DB, no cap drop, and whether it equals path C bit
+   for bit; H2, the same scenario on two processes sharing the one card
+   over gloo (a group passed to make_mesh), TorchDraws(0) on both ranks:
+   the ranks' poses, target, counts and keyframe store bit for bit, dp
+   against fsdp within TOL_H_ATE_M / TOL_H2_PSNR_DB, each rank joined
+   under H2_JOIN_S; on both, one opt_step_batched (dp, fsdp) and one
+   make_parallel_opt_step on the final map against the plain
+   single-process batched step (tests/test_parallel.py's tolerances),
+   the bytes of their collectives (dp: one all-reduce of exactly the
+   parameter bytes; fsdp: gathers of the parameters and live, a
+   reduce-scatter of a 1/W shard, scalar all-reduces), ms per mapping
+   iteration and per collective, FPS, each beside the card's name and
+   power limit (two processes on one card measure no scaling);
 5. prints a "kernels" JSON line (each row with its launches on paths
-   A-G and the stress runs) and, as the last line,
+   A-H and the stress runs) and, as the last line,
    {"ok": true, "device": {...}}.  The card's name and power limit
    (nvidia-smi) is the first line of output.
 
@@ -99,10 +118,6 @@ import subprocess
 import sys
 import time
 import warnings
-
-# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 
 # The JAX SLAMEngine on the same configurations (scripts/port_reference.py,
 # JAX on the CPU): quality values, not speeds.  Path A, no mapping:
@@ -328,8 +343,14 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    """The least time (ms) of `flops` float32 operations and `nbytes`
+    bytes at the H100's published peaks (utils/profiling.CHIPS), and which
+    of the two bounds it."""
+    from gs_icp_slam_torch.utils.profiling import CHIPS
+
+    h100 = CHIPS["h100"]
+    t_ops = flops / h100.peak_flops_f32 * 1e3
+    t_mem = nbytes / (h100.hbm_gbps * 1e9) * 1e3
     return (max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes")
 
 
@@ -1613,6 +1634,391 @@ def path_g(seq, card, cuda_build, problems) -> dict:
     return total
 
 
+# ---- path H: multi-device mapping ---------------------------------------
+
+# path H's tolerances: H1 (world size 1) against path C, the same function
+# without capacity buckets (float32 sums over another visible cap and
+# target slice), and H2's dp against fsdp (two keyframes a mapping
+# iteration, float32 sums of two ranks' gradients); the batched steps
+# against the plain single-process reference take tests/test_parallel.py's
+# (loss rtol 1e-5, params and Adam m rtol 2e-4)
+TOL_H_ATE_M = 1e-5
+TOL_H1_PSNR_DB = 1e-3
+TOL_H2_PSNR_DB = 1e-2
+H2_WORLD = 2
+H2_JOIN_S = 300  # each H2 rank's rendezvous and its process's join
+
+
+def mesh_draws(pairs, world: int, kc: int) -> list:
+    """Recorded draws laid out for a mesh step of `world` ranks: each
+    mapping iteration's draw is followed by the `world` draws of its batch,
+    the first of which the iteration's pick overwrites; those repeat the
+    iteration's draw.  The reservoir's victims (maxval kc, the keyframe
+    store's size; path C never holds as many keyframes) take no batch."""
+    out = []
+    for m, v in pairs:
+        out.append([m, v])
+        if m != kc:
+            out += [[m, v]] * world
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_cfg(cfg, mode: str):
+    return cfg.replace(engine=dataclasses.replace(cfg.engine,
+                                                  parallel_mode=mode))
+
+
+def close_within(a, b, rtol: float, atol: float) -> float:
+    """The largest |a - b| - (atol + rtol |b|) (numpy assert_allclose's
+    test): <= 0 where a is within the tolerance of b."""
+    return float(((a - b).abs() - (atol + rtol * b.abs())).max())
+
+
+def batched_step_checks(mesh, cfg, state, problems, tag: str) -> dict:
+    """One opt_step_batched in dp and in fsdp and one make_parallel_opt_step
+    on a run's final whole map (keyframes kf_count-1, kf_count-2, ... one a
+    rank) against the plain single-process batched step on the card (every
+    keyframe rendered here, the mean loss, one Adam step); the bytes of
+    each step's collectives; ms per mapping iteration (host clock, 10
+    synced iterations) and in each kind of collective (5 more, each
+    collective timed alone, summed over its calls in an iteration)."""
+    import torch
+
+    from gs_icp_slam_torch.models import adam_step, map_lr_tree, map_params
+    from gs_icp_slam_torch.parallel import (make_parallel_opt_step,
+                                            shard_map_state)
+    from gs_icp_slam_torch.parallel.mapping import gather_params
+    from gs_icp_slam_torch.slam.fused import make_mapping_primitives
+
+    W = mesh.size
+    idxs = [(state.kf_count - 1 - r) % state.kf_count for r in range(W)]
+    batch = (state.kf_w2c[idxs], state.kf_rgb[idxs], state.kf_depth[idxs])
+    params, adam, live = map_params(state.gmap), state.adam, state.gmap.live
+    param_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    capacity = live.shape[0]
+
+    # the plain reference: both keyframes in this process
+    prim_1 = make_mapping_primitives(cfg, mesh.device)
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    loss_ref = torch.stack([prim_1.opt_loss(leaves, live, *(b[i] for b in
+                                                            batch))[0]
+                            for i in range(W)]).mean()
+    grads = torch.autograd.grad(loss_ref, list(leaves.values()))
+    p_ref, a_ref = adam_step(params, dict(zip(params, grads)), adam,
+                             map_lr_tree(cfg.opt), live, b1=cfg.opt.adam_b1,
+                             b2=cfg.opt.adam_b2, eps=cfg.opt.adam_eps)
+    shards = shard_map_state(mesh, params, adam, live)
+    out = {}
+    for mode in ("dp", "fsdp", "standalone"):
+        if mode == "standalone":
+            fn = make_parallel_opt_step(mesh, mesh_cfg(cfg, "fsdp")).step
+        else:
+            fn = make_mapping_primitives(mesh_cfg(cfg, mode), mesh.device,
+                                         mesh).opt_step_batched
+        args = ((params, adam, live) if mode == "dp" else shards) + batch
+        mesh.audit = []
+        got = fn(*args)
+        audit, mesh.audit = mesh.audit, None
+        p, a, loss = got[:3]
+        if mode != "dp":
+            p, _ = gather_params(mesh, p, shards[2])
+            m, _ = gather_params(mesh, a.m, shards[2])
+        else:
+            m = a.m
+        worst = dict(
+            loss=close_within(loss.reshape(1), loss_ref.detach().reshape(1),
+                              1e-5, 1e-6),
+            params=max(close_within(p[k], p_ref[k], 2e-4, 1e-6)
+                       for k in p if p[k].numel()),
+            adam_m=max(close_within(m[k], a_ref.m[k], 2e-4, 1e-7)
+                       for k in m if m[k].numel()))
+        max_abs = dict(
+            loss=float((loss - loss_ref.detach()).abs()),
+            params=max(float((p[k] - p_ref[k]).abs().max()) for k in p
+                       if p[k].numel()),
+            adam_m=max(float((m[k] - a_ref.m[k]).abs().max()) for k in m
+                       if m[k].numel()))
+        for key, v in worst.items():
+            if not v <= 0.0:
+                problems.append(f"{tag} {mode} step: {key} outside the "
+                                f"tolerance of the plain batched step by {v}")
+        ops = {}
+        for op, n, b in audit:
+            ops.setdefault(op, []).append((n, b))
+        arrays = {op: sum(b for n, b in v if n > 4) for op, v in ops.items()}
+        if mode == "dp":
+            ok = (set(ops) == {"all_reduce"}
+                  and arrays["all_reduce"] == param_bytes)
+        else:
+            ok = (sum(b for _, b in ops.get("all_gather", []))
+                  == param_bytes + capacity
+                  and sum(b for _, b in ops.get("reduce_scatter", []))
+                  == param_bytes // W
+                  and arrays.get("all_reduce", 0) == 0)
+        if not ok:
+            problems.append(f"{tag} {mode} step: collective bytes {ops} "
+                            f"(parameter bytes {param_bytes}, capacity "
+                            f"{capacity}, world {W})")
+        # ms per mapping iteration, then per collective
+        for _ in range(2):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn(*args)
+        torch.cuda.synchronize()
+        iter_ms = (time.perf_counter() - t0) / 10 * 1e3
+        mesh.timings = {}
+        for _ in range(5):
+            fn(*args)
+        timings, mesh.timings = mesh.timings, None
+        out[mode] = dict(
+            worst_vs_tolerance=worst, max_abs_diff=max_abs,
+            ms_per_mapping_iteration=iter_ms,
+            collective_ms_per_iteration={op: sum(v) / 5
+                                         for op, v in timings.items()},
+            collectives_per_iteration={op: len(v) for op, v in ops.items()},
+            collective_bytes_per_iteration={
+                op: sum(b for _, b in v) for op, v in ops.items()},
+            audit_held=ok)
+    out["param_bytes"] = param_bytes
+    return out
+
+
+def path_h1(seq, cfg_c, res_c, card, cuda_build, problems) -> dict:
+    """Path H1: FusedEngine on a world-1 mesh over NCCL in this process
+    (parallel.init_distributed, global_mesh), in dp ("auto" picks it) and
+    fsdp, on path C's scenario and draws, then one refine call each; held
+    to each other bit for bit and to path C's run.  Returns the kernels'
+    launches in the two runs."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gs_icp_slam_torch.parallel import global_mesh, init_distributed
+    from gs_icp_slam_torch.parallel.sharded import gather_state
+    from gs_icp_slam_torch.slam import FusedEngine, RecordedDraws
+
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, timeout_s=120)
+    try:
+        mesh = global_mesh()
+        kc = cfg_c.engine.keyframe_capacity
+        cuda_build.reset_launch_counts()
+        runs = {}
+        for mode in ("auto", "fsdp"):
+            draws = RecordedDraws(mesh_draws(DRAWS_C + REFINE_DRAWS_C, 1, kc))
+            eng = FusedEngine(seq, mesh_cfg(cfg_c, mode), mesh=mesh,
+                              draws=draws)
+            res = eng.run(eval_render=True)
+            refined = eng.fused.refine(eng.state)
+            runs[mode] = (eng, res, gather_state(refined, mesh, eng.mode))
+        torch.cuda.synchronize()
+        launches = launch_counts(cuda_build)
+        (e_dp, r_dp, s_dp), (e_fs, r_fs, s_fs) = runs["auto"], runs["fsdp"]
+        same = (np.array_equal(r_dp.poses, r_fs.poses)
+                and r_dp.psnr == r_fs.psnr
+                and all(torch.equal(getattr(s_dp.gmap, f),
+                                    getattr(s_fs.gmap, f))
+                        for f in s_dp.gmap._fields if f != "n"))
+        steps = batched_step_checks(mesh, mesh_cfg(cfg_c, "dp"), s_dp,
+                                    problems, "H1")
+    finally:
+        dist.destroy_process_group()
+    if e_dp.mode != "dp" or e_fs.mode != "fsdp":
+        problems.append(f"H1: modes {e_dp.mode}, {e_fs.mode}")
+    if not same:
+        problems.append("H1: dp and fsdp differ (poses, PSNR or the map "
+                        "after the refine)")
+    for mode, (eng, res, _) in runs.items():
+        if not abs(res.ate_rmse - res_c.ate_rmse) <= TOL_H_ATE_M:
+            problems.append(f"H1 {mode}: ATE {res.ate_rmse} vs path C "
+                            f"{res_c.ate_rmse}")
+        if not abs(res.ate_rmse - REF_C["ate_m"]) <= TOL_ATE_M:
+            problems.append(f"H1 {mode}: ATE {res.ate_rmse} vs the JAX "
+                            f"reference {REF_C['ate_m']}")
+        for key in ("num_gaussians", "kf_total", "kf_stored"):
+            if getattr(res, key) != getattr(res_c, key):
+                problems.append(f"H1 {mode}: {key} {getattr(res, key)} vs "
+                                f"path C {getattr(res_c, key)}")
+        if not abs(res.psnr - res_c.psnr) <= TOL_H1_PSNR_DB:
+            problems.append(f"H1 {mode}: PSNR {res.psnr} vs path C "
+                            f"{res_c.psnr}")
+        if res.vis_cap_dropped or res.tile_cap_dropped:
+            problems.append(f"H1 {mode}: cap drops {res.vis_cap_dropped}, "
+                            f"{res.tile_cap_dropped}")
+    check_launched("H1", launches, ("nn1", "knn", "composite_fwd",
+                                    "composite_bwd"), problems)
+    print(json.dumps({
+        "path": "H1", "entry": "FusedEngine(mesh=global_mesh()), world 1",
+        "card": card, "backend": mesh.backend,
+        "host_staged_collectives": [],
+        "modes": {e.mode: dict(fps=r.fps, ate_m=r.ate_rmse, psnr_mean=r.psnr,
+                               num_gaussians=r.num_gaussians,
+                               kf_total=r.kf_total, kf_count=r.kf_stored,
+                               vis_cap_dropped=r.vis_cap_dropped,
+                               tile_cap_dropped=r.tile_cap_dropped)
+                  for e, r, _ in runs.values()},
+        "dp_equals_fsdp_bit_for_bit": same,
+        "poses_bit_equal_to_path_c": bool(np.array_equal(r_dp.poses,
+                                                         res_c.poses)),
+        "psnr_equal_to_path_c": r_dp.psnr == res_c.psnr,
+        "ate_minus_path_c_m": r_dp.ate_rmse - res_c.ate_rmse,
+        "path_c_fps": res_c.fps, "steps": steps, "launches": launches}),
+        flush=True)
+    return launches
+
+
+def h2_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of path H2: a gloo group over the one card; FusedEngine
+    in dp and in fsdp on path C's scenario with TorchDraws(0) (the same on
+    every rank), then batched_step_checks on the dp run's map; writes
+    out_dir/h2-<rank>.json and .npz."""
+    import datetime
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gs_icp_slam_torch import cuda_build
+    from gs_icp_slam_torch.config import synthetic_config
+    from gs_icp_slam_torch.datasets import InMemorySequence, open_dataset
+    from gs_icp_slam_torch.parallel import make_mesh
+    from gs_icp_slam_torch.parallel.sharded import gather_state
+    from gs_icp_slam_torch.slam import FusedEngine, TorchDraws
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=H2_JOIN_S))
+    try:
+        mesh = make_mesh("cuda:0")
+        seq = InMemorySequence(open_dataset("synthetic", width=WIDTH,
+                                            height=HEIGHT, num_frames=FRAMES))
+        _, cfg_b = path_configs(seq, synthetic_config)
+        cfg = cfg_b.replace(engine=dataclasses.replace(cfg_b.engine,
+                                                       fps_cap=None))
+        problems, info, arrays, wholes = [], {}, {}, {}
+        cuda_build.reset_launch_counts()
+        for mode in ("dp", "fsdp"):
+            eng = FusedEngine(seq, mesh_cfg(cfg, mode), mesh=mesh,
+                              draws=TorchDraws(0))
+            res = eng.run(eval_render=True)
+            st = gather_state(eng.state, mesh, eng.mode)
+            wholes[mode] = st
+            k = st.kf_count
+            info[mode] = dict(
+                fps=res.fps, ate_m=res.ate_rmse, psnr_mean=res.psnr,
+                num_gaussians=res.num_gaussians, kf_total=res.kf_total,
+                kf_count=res.kf_stored, vis_cap_dropped=res.vis_cap_dropped,
+                tile_cap_dropped=res.tile_cap_dropped,
+                local_rows=eng.state.gmap.capacity,
+                kf_store_sha256=hashlib.sha256(
+                    st.kf_rgb[:k].cpu().numpy().tobytes()
+                    + st.kf_depth[:k].cpu().numpy().tobytes()).hexdigest())
+            arrays[f"{mode}.poses"] = res.poses
+            arrays[f"{mode}.target"] = st.target.points.cpu().numpy()
+            arrays[f"{mode}.kf_w2c"] = st.kf_w2c.cpu().numpy()
+        torch.cuda.synchronize()
+        info["launches"] = launch_counts(cuda_build)
+        info["steps"] = batched_step_checks(mesh, mesh_cfg(cfg, "dp"),
+                                            wholes["dp"], problems, "H2")
+        info["problems"] = problems
+        info["backend"] = mesh.backend
+        np.savez(f"{out_dir}/h2-{rank}.npz", **arrays)
+        with open(f"{out_dir}/h2-{rank}.json", "w") as f:
+            json.dump(info, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def path_h2(card, problems) -> dict:
+    """Path H2: two processes on the one card over gloo, the counterpart
+    of the JAX package's dryrun_multichip (h2_rank).  Every rank is joined
+    under H2_JOIN_S; a rank that fails or hangs is a problem.  Holds the
+    ranks' poses, target, counts and keyframe store equal bit for bit, and
+    dp against fsdp.  Two processes share one card: the times say nothing
+    of scaling.  Returns the kernels' launches summed over the ranks."""
+    import multiprocessing
+    import os
+    import tempfile
+
+    import numpy as np
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="path_h2_", dir=build)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=h2_rank, args=(r, H2_WORLD,
+                                               f"{out_dir}/store", out_dir))
+             for r in range(H2_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + H2_JOIN_S
+    for p in procs:
+        p.join(max(deadline - time.perf_counter(), 1.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0] * H2_WORLD:
+        problems.append(f"H2: ranks {hung} hung, exit codes {codes}")
+        return {}
+    info = []
+    arrays = []
+    for r in range(H2_WORLD):
+        with open(os.path.join(out_dir, f"h2-{r}.json")) as f:
+            info.append(json.load(f))
+        arrays.append(dict(np.load(os.path.join(out_dir, f"h2-{r}.npz"))))
+        problems += info[r]["problems"]
+    for mode in ("dp", "fsdp"):
+        for key, a in arrays[0].items():
+            if not np.array_equal(a, arrays[1][key]):
+                problems.append(f"H2: {key} differs between the ranks")
+        for key in ("num_gaussians", "kf_total", "kf_count", "psnr_mean",
+                    "kf_store_sha256"):
+            if info[0][mode][key] != info[1][mode][key]:
+                problems.append(f"H2 {mode}: {key} differs between the "
+                                f"ranks")
+    dp, fs = info[0]["dp"], info[0]["fsdp"]
+    if not abs(dp["ate_m"] - fs["ate_m"]) <= TOL_H_ATE_M:
+        problems.append(f"H2: ATE dp {dp['ate_m']} vs fsdp {fs['ate_m']}")
+    if not abs(dp["psnr_mean"] - fs["psnr_mean"]) <= TOL_H2_PSNR_DB:
+        problems.append(f"H2: PSNR dp {dp['psnr_mean']} vs fsdp "
+                        f"{fs['psnr_mean']}")
+    for key in ("num_gaussians", "kf_total", "kf_count"):
+        if dp[key] != fs[key]:
+            problems.append(f"H2: {key} dp {dp[key]} vs fsdp {fs[key]}")
+    launches = {k: sum(i["launches"][k] for i in info)
+                for k in info[0]["launches"]}
+    check_launched("H2", launches, ("nn1", "knn", "composite_fwd",
+                                    "composite_bwd"), problems)
+    print(json.dumps({
+        "path": "H2", "entry": "FusedEngine(mesh=make_mesh('cuda:0')), "
+        "two processes on one card", "card": card,
+        "backend": info[0]["backend"], "host_staged_collectives": [],
+        "wall_s": wall, "ranks": info,
+        "dp_vs_fsdp": dict(ate_m=dp["ate_m"] - fs["ate_m"],
+                           psnr_db=dp["psnr_mean"] - fs["psnr_mean"],
+                           poses_max_abs=float(np.abs(
+                               arrays[0]["dp.poses"]
+                               - arrays[0]["fsdp.poses"]).max())),
+        "launches": launches}), flush=True)
+    return launches
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1771,6 +2177,12 @@ def main() -> None:
     t_phase = time.perf_counter()
     by_path["G"] = path_g(seq, card, cuda_build, problems)
     phase_s["G"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    by_path["H1"] = path_h1(seq, cfg_c, res_c, card, cuda_build, problems)
+    phase_s["H1"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    by_path["H2"] = path_h2(card, problems) or {k: 0 for k in launches_d}
+    phase_s["H2"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---- 3. kernels against their plain versions ------------------------

@@ -3,7 +3,8 @@ bridge of the paper's covariance sharing.
 
   * estimate_covariances    ~ fast_gicp calculate_*_covariance_with_filter
   * cov_to_quat_scale       ~ get_*_rotationsq / get_*_scales
-  * quat_scale_to_reg_cov6  ~ set_target_covariances_fromqs
+  * quat_scale_to_reg_cov6  ~ set_target_covariances_fromqs (and
+    quat_scale_to_reg_cov, the same as (N, 3, 3) matrices)
   * regularize_plane: eigenvalues -> (eps, 1, 1) ascending, the G-ICP plane
     prior (fast_gicp RegularizationMethod PLANE, eps = 1e-3).
 
@@ -61,6 +62,19 @@ def quat_scale_to_cov(quat: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """C = R diag(s^2) R^T."""
     R = quat_to_rotmat(quat)
     return torch.einsum("...ij,...j,...kj->...ik", R, scales * scales, R)
+
+
+def quat_scale_to_reg_cov(quat: torch.Tensor, scales: torch.Tensor,
+                          eps: float = 1e-3) -> torch.Tensor:
+    """Plane-regularized covariance (..., 3, 3) directly from (quat,
+    scale), no eigh: C = R diag(s^2) R^T is already an eigendecomposition,
+    so the smallest s^2 (the first of a tie) becomes eps and the others 1
+    (set_target_covariances_fromqs, mp_Tracker.py:288)."""
+    R = quat_to_rotmat(quat)
+    amin = torch.argmin(scales * scales, dim=-1)
+    d = torch.where(torch.arange(3, device=R.device) == amin[..., None],
+                    eps, 1.0).to(R.dtype)
+    return torch.einsum("...ij,...j,...kj->...ik", R, d, R)
 
 
 def quat_scale_to_reg_cov6(quat: torch.Tensor, scales: torch.Tensor,

@@ -16,6 +16,7 @@ to 0 for black pixels.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -68,6 +69,18 @@ def _max(x: torch.Tensor, c: float) -> torch.Tensor:
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(_max(x, lo), _scalar(hi, x.dtype, x.device))
+
+
+class Splats2D(NamedTuple):
+    """Per-Gaussian screen-space quantities (all length N, masked)."""
+
+    mean2d: torch.Tensor   # (N, 2) pixel coordinates
+    conic: torch.Tensor    # (N, 3) upper-triangular inverse 2D covariance
+    radius: torch.Tensor   # (N,) int32 pixel radius (0 = culled)
+    depth: torch.Tensor    # (N,) camera-space z
+    rgb: torch.Tensor      # (N, 3) decoded colour
+    opacity: torch.Tensor  # (N,) sigmoid-activated opacity
+    visible: torch.Tensor  # (N,) bool: survives the frustum cull
 
 
 def covariance_3d(quat: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -192,3 +205,22 @@ def project_gaussians_packed(xyz: torch.Tensor, quat: torch.Tensor,
     attr = torch.stack([mx, my, conic_a, conic_b, conic_c, rr, gg, bb,
                         opacity, z], dim=0)
     return attr, radius, visible
+
+
+def project_gaussians(xyz: torch.Tensor, quat: torch.Tensor,
+                      scale: torch.Tensor, opacity: torch.Tensor,
+                      sh: torch.Tensor, sh_degree: int, w2c: torch.Tensor,
+                      fx: float, fy: float, cx: float, cy: float, width: int,
+                      height: int, live: torch.Tensor, znear: float = 0.2,
+                      scale_modifier: float = 1.0) -> Splats2D:
+    """Preprocess N Gaussians for one view: the struct-of-rows view of
+    project_gaussians_packed, for the dense reference renderer
+    (ops/rasterize_ref.py) and tests.  quat (N, 4) xyzw, scale (N, 3)
+    linear extents, opacity (N,) in [0, 1], sh (N, (deg+1)^2, 3), w2c
+    (4, 4); dead slots (live False) are culled."""
+    attr, radius, visible = project_gaussians_packed(
+        xyz, quat, scale, opacity, sh, sh_degree, w2c, fx, fy, cx, cy,
+        width, height, live, znear, scale_modifier)
+    return Splats2D(mean2d=attr[0:2].T, conic=attr[2:5].T, radius=radius,
+                    depth=attr[9], rgb=attr[5:8].T, opacity=attr[8],
+                    visible=visible)

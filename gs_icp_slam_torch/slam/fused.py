@@ -25,6 +25,19 @@ test and the insertion count are synced scalars (chip_smoke.py counts the
 syncs per frame).  Left behind as TPU mechanics: layout pins, the
 gutted-state lax.cond, lax.scan against compile time and donation.
 
+With a mesh (parallel.make_mesh), the step and engine run on every rank of
+a torch.distributed group, as the JAX step runs under a device mesh: each
+mapping iteration draws W keyframe indices after its usual draw, sets the
+first to the usual pick, and rank r renders keyframe r through
+`opt_step_batched` (parallel/mapping.py: dp or fsdp, cfg.engine.
+parallel_mode).  In fsdp the map is split along capacity
+(parallel/sharded.py): the prune stays on the shard, an insert writes the
+rank's part of its slots, the target export gathers the ranks' candidate
+lists, and `render_eval` gathers the map first.  Every rank's draw source
+must be identical; tracking, keyframe decisions and every other field are
+computed alike on every rank.  A mesh run uses no buckets, and `refine`
+ignores its bucket (JAX's mesh jits do the same).
+
 Capacity buckets are kept as semantics.  The engine picks (n_bucket,
 t_bucket) from the map's size every BUCKET_SYNC frames; mapping, the
 prune, Adam and the target export see the map's first n_bucket slots, and
@@ -61,6 +74,11 @@ from ..models import (AdamState, GaussianMap, add_gaussians, adam_step,
 from ..ops.gicp import (GICPTarget, gicp_align, make_source,
                         target_from_gaussians, target_from_points)
 from ..ops.rasterize import rasterize_tiled, tile_capacity
+from ..parallel.mapping import batched_opt_step, gather_params
+from ..parallel.sharded import (add_gaussians_sharded, choose_mode,
+                                gather_map, gather_state, num_live,
+                                place_state, shard_rows,
+                                trackable_export_sharded)
 from ..utils.losses import mapping_loss
 from ..utils.pointcloud import DownsampleFilter
 from ..utils.quat import quat_multiply, rotmat_to_quat
@@ -76,6 +94,8 @@ class MappingPrimitives(NamedTuple):
                          #   -> (loss, stats)
     opt_step: Callable   # (params, adam, live, w2c, rgb_u8, depth_raw)
                          #   -> (params, adam, loss, stats)
+    opt_step_batched: Callable | None  # the mesh step, one keyframe per
+                         # rank (None without a mesh)
     sh_concat: Callable  # params -> (C, (sh+1)^2, 3) SH coefficients
 
 
@@ -94,9 +114,15 @@ def _downsample_gt(gt_img, gt_depth, sdiv: int):
     return img, dep
 
 
-def make_mapping_primitives(cfg: SLAMConfig, device="cuda",
+def make_mapping_primitives(cfg: SLAMConfig, device="cuda", mesh=None,
                             n_cap: int | None = None) -> MappingPrimitives:
     """Build the single-keyframe mapping step for a config on one device.
+
+    With `mesh`: also `opt_step_batched`, the mapping step of the mode
+    cfg.engine.parallel_mode resolves to (parallel/mapping.py
+    batched_opt_step): (params, adam, live, w2c_b, rgb_b, depth_b) with a
+    batch of mesh.size keyframes, rank r rendering keyframe r; the whole
+    map in dp, the rank's shard in fsdp.
 
     `n_cap`: the capacity bucket the step will see (the fused engine's
     buckets) — caps the per-view visible budget V, and with it the
@@ -169,8 +195,16 @@ def make_mapping_primitives(cfg: SLAMConfig, device="cuda",
                                  eps=cfg.opt.adam_eps)
         return params, adam, loss.detach(), stats
 
+    opt_step_batched = None
+    if mesh is not None:
+        mode = choose_mode(cfg.map.capacity, cfg.map.sh_degree,
+                           cfg.engine.parallel_mode)
+        opt_step_batched = batched_opt_step(mesh, mode, opt_loss, lrs,
+                                            cfg.opt)
     return MappingPrimitives(raster=raster, opt_loss=opt_loss,
-                             opt_step=opt_step, sh_concat=sh_concat)
+                             opt_step=opt_step,
+                             opt_step_batched=opt_step_batched,
+                             sh_concat=sh_concat)
 
 
 # ------------------------------------------------------------ draws ------
@@ -302,10 +336,15 @@ def _slice_target(t: GICPTarget, tb) -> GICPTarget:
 
 
 def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
-                    device="cuda") -> FusedStep:
-    """Build the fused frame step for one device.  `draws(maxval) -> int`
-    is the source of the step's random draws (see the module docstring)."""
-    dev = resolve_device(device)
+                    device="cuda", mesh=None) -> FusedStep:
+    """Build the fused frame step for one device, or with `mesh` for this
+    rank of the mesh (on mesh.device; the state is the rank-local one,
+    parallel.place_state).  `draws(maxval) -> int` is the source of the
+    step's random draws (see the module docstring)."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    mode = None if mesh is None else choose_mode(
+        cfg.map.capacity, cfg.map.sh_degree, cfg.engine.parallel_mode)
+    sharded = mode == "fsdp"
     intr = cfg.intr
     gicp_cfg = cfg.gicp
     tc = cfg.engine.target_capacity
@@ -319,7 +358,8 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
 
     def get_prim(n_cap=None) -> MappingPrimitives:
         if n_cap not in prims:
-            prims[n_cap] = make_mapping_primitives(cfg, dev, n_cap=n_cap)
+            prims[n_cap] = make_mapping_primitives(cfg, dev, mesh,
+                                                   n_cap=n_cap)
         return prims[n_cap]
 
     prim = get_prim()
@@ -331,7 +371,7 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
         gmap_full = state.gmap
         gmap = _slice_map(gmap_full, n_bucket)
         adam = _slice_adam(state.adam, n_bucket)
-        opt_step = get_prim(n_bucket).opt_step
+        prim_b = get_prim(n_bucket)
         vis_drop, pair_drop = state.stat_vis_dropped, state.stat_pair_dropped
         for it in range(n_iters):
             rand_idx = draws(max(state.kf_count, 1))
@@ -341,11 +381,22 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
             if state.train_iter % cfg.map.prune_interval == 0:
                 gmap = prune_large_and_transparent(
                     gmap, cfg.map.prune_min_opacity, cfg.map.prune_extent)
+            if mesh is not None:
+                # one keyframe per rank: the first takes the usual pick
+                # (newest, then uniform), the others uniform draws
+                idxs = [draws(max(state.kf_count, 1))
+                        for _ in range(mesh.size)]
+                idxs[0] = idx
             if state.kf_count == 0:
                 continue  # frame 0 has no stored keyframe yet
-            params, adam, _, stats = opt_step(
-                map_params(gmap), adam, gmap.live, state.kf_w2c[idx],
-                state.kf_rgb[idx], state.kf_depth[idx])
+            if mesh is None:
+                params, adam, _, stats = prim_b.opt_step(
+                    map_params(gmap), adam, gmap.live, state.kf_w2c[idx],
+                    state.kf_rgb[idx], state.kf_depth[idx])
+            else:
+                params, adam, _, stats = prim_b.opt_step_batched(
+                    map_params(gmap), adam, gmap.live, state.kf_w2c[idxs],
+                    state.kf_rgb[idxs], state.kf_depth[idxs])
             gmap = with_params(gmap, params)
             vis_drop = torch.maximum(vis_drop, stats[1])
             pair_drop = torch.maximum(pair_drop, stats[2])
@@ -364,11 +415,20 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
         state.kf_count = min(state.kf_count + 1, kc)
         state.kf_total += 1
 
+    def insert(m: GaussianMap, *args, **kw) -> GaussianMap:
+        if sharded:
+            return add_gaussians_sharded(m, mesh, *args, **kw)
+        return add_gaussians(m, *args, **kw)
+
     def export_target(gmap: GaussianMap, n_bucket=None) -> GICPTarget:
         out_cap = tc if n_bucket is None else min(tc, n_bucket)
-        pts, rots, scales, valid = trackable_export(
-            _slice_map(gmap, n_bucket), cfg.map.trackable_opacity_th,
-            out_cap)
+        if sharded:
+            pts, rots, scales, valid = trackable_export_sharded(
+                gmap, mesh, cfg.map.trackable_opacity_th, out_cap)
+        else:
+            pts, rots, scales, valid = trackable_export(
+                _slice_map(gmap, n_bucket), cfg.map.trackable_opacity_th,
+                out_cap)
         return target_from_gaussians(pts, rots, scales, valid, gicp_cfg,
                                      capacity=tc)
 
@@ -377,9 +437,9 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
         pts_w = transform_points(pose0, points)
         target, quat, scales = target_from_points(pts_w, trackable, gicp_cfg,
                                                   capacity=tc)
-        state.gmap = add_gaussians(state.gmap, pts_w, colors, quat, scales, z,
-                                   trackable, valid,
-                                   init_opacity=cfg.map.init_opacity)
+        state.gmap = insert(state.gmap, pts_w, colors, quat, scales, z,
+                            trackable, valid,
+                            init_opacity=cfg.map.init_opacity)
         state.target = target
         state.last_ratio = 0.0
         store_keyframe(state)
@@ -426,10 +486,9 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
             insert_ok = valid
             if cfg.kf.insert_dedup_sqd > 0.0:
                 insert_ok = insert_ok & (sqd > cfg.kf.insert_dedup_sqd)
-            state.gmap = add_gaussians(state.gmap, pts_w, colors, rots_w,
-                                       source.scales, z, new_trackable,
-                                       insert_ok,
-                                       init_opacity=cfg.map.init_opacity)
+            state.gmap = insert(state.gmap, pts_w, colors, rots_w,
+                                source.scales, z, new_trackable, insert_ok,
+                                init_opacity=cfg.map.init_opacity)
             store_keyframe(state)
         state.last_ratio = ratio
         if tracking_kf:
@@ -475,11 +534,18 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
 
     def refine(state: SLAMState, n_bucket=None) -> SLAMState:
         """Post-run map refinement (the reference mapper free-runs after
-        the tracker ends, mp_Mapper.py:154): REFINE_CHUNK iterations."""
-        return mapping_iters(state, REFINE_CHUNK, n_bucket)
+        the tracker ends, mp_Mapper.py:154): REFINE_CHUNK iterations.  A
+        mesh step ignores the bucket."""
+        return mapping_iters(state, REFINE_CHUNK,
+                             n_bucket if mesh is None else None)
 
     @torch.no_grad()
     def render_eval(params, live, w2c, rgb_u8, depth_raw):
+        """The render of a view and its masked PSNR.  In fsdp a shard's
+        params and live are gathered first (a collective); the whole map
+        renders as it is."""
+        if sharded and live.shape[0] < cfg.map.capacity:
+            params, live = gather_params(mesh, params, live)
         gt_img = rgb_u8.to(torch.float32) / 255.0  # (3, H, W) input
         gt_depth = depth_raw / intr.depth_scale
         out = prim.raster(params["xyz"], params["rotation"],
@@ -500,7 +566,19 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
 
 class FusedEngine:
     """The engine of bench.py's path: one fused step per frame, capacity
-    buckets, the reservoir keyframe store and post-run refinement."""
+    buckets, the reservoir keyframe store and post-run refinement.
+
+    With `mesh` (parallel.make_mesh; the same call on every rank, with
+    identical draw sources), each rank runs the engine on mesh.device: the
+    map is whole (dp) or split along capacity (fsdp) per
+    cfg.engine.parallel_mode, each mapping iteration optimizes mesh.size
+    keyframes, and no buckets are used.  `state` is then the rank-local
+    state.  The autosave, `save_checkpoint` and `save_ply` gather the state
+    on every rank and only rank 0 writes; a resume loads the file on every
+    rank and places it; `evaluate`, the eval renders and the viewers read
+    the gathered map (only rank 0 writes evaluate's dump).  The ranks agree
+    once per run on whether any passed a viewer, and then all gather the
+    map for it each frame."""
 
     # how often the engine re-picks the capacity buckets from the map's
     # size.  Outgrowing a bucket between picks is soft: inserts land in
@@ -511,11 +589,26 @@ class FusedEngine:
     MIN_BUCKET = 1 << 14
 
     def __init__(self, dataset, cfg: SLAMConfig, seed: int = 0,
-                 device="cuda", draws=None):
+                 device="cuda", draws=None, mesh=None):
         """`draws`: the source of the step's random draws; by default a
-        TorchDraws seeded from `seed`."""
+        TorchDraws seeded from `seed`.  `mesh`: run as this rank of a
+        mesh (on mesh.device); raises without an initialized process
+        group, and unless the map capacity divides by the mesh size."""
+        import torch.distributed as dist
+
         from ..utils.pointcloud import make_downsample_filter
 
+        self.mesh = mesh
+        self.mode = None
+        if mesh is not None:
+            if not (dist.is_available() and dist.is_initialized()):
+                raise RuntimeError("FusedEngine(mesh=) needs an initialized "
+                                   "process group (parallel.init_distributed"
+                                   " or a group passed to make_mesh)")
+            shard_rows(mesh, cfg.map.capacity)  # raises unless it divides
+            self.mode = choose_mode(cfg.map.capacity, cfg.map.sh_degree,
+                                    cfg.engine.parallel_mode)
+            device = mesh.device
         self.device = resolve_device(device)
         self.dataset = dataset
         self.cfg = cfg
@@ -525,7 +618,8 @@ class FusedEngine:
             cfg.downsample_rate)
         self.seed = seed
         self.draws = TorchDraws(seed) if draws is None else draws
-        self.fused = make_fused_step(cfg, self.filt, self.draws, self.device)
+        self.fused = make_fused_step(cfg, self.filt, self.draws, self.device,
+                                     mesh)
         self.state: SLAMState | None = None
 
     @staticmethod
@@ -534,7 +628,10 @@ class FusedEngine:
 
     def _pick_buckets(self, n_now: int):
         """(n_bucket, t_bucket) covering n_now plus a two-keyframe insert
-        margin (the target: one keyframe); None = full capacity."""
+        margin (the target: one keyframe); None = full capacity.  A mesh
+        run keeps the whole map (and whole shards)."""
+        if self.mesh is not None:
+            return None, None
         margin = 2 * self.filt.num_points
         cap = self.cfg.map.capacity
         nb = max(self._pow2(n_now + margin), self.MIN_BUCKET)
@@ -554,6 +651,21 @@ class FusedEngine:
     def _on_device(self, fr):
         return (torch.from_numpy(np.asarray(fr.depth)).to(self.device),
                 to_chw(fr.rgb, self.device))
+
+    def _whole(self, state: SLAMState) -> SLAMState:
+        """The whole state (a collective in fsdp: every rank calls it)."""
+        if self.mesh is None:
+            return state
+        return gather_state(state, self.mesh, self.mode)
+
+    def _whole_map(self, m: GaussianMap) -> GaussianMap:
+        if self.mesh is None:
+            return m
+        return gather_map(m, self.mesh, self.mode)
+
+    def _writes(self) -> bool:
+        """Whether this process writes files: rank 0 of a mesh."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def run(self, eval_render: bool = True, eval_stride: int = 1,
             progress: bool = False, viewer=None, net_gui=None,
@@ -589,12 +701,21 @@ class FusedEngine:
                 f0.gt_c2w if f0.gt_c2w is not None else np.eye(4),
                 np.float32)
             state = init_state(cfg, n, pose0, self.device)
+        mesh = self.mesh
+        if mesh is not None:
+            state = place_state(state, mesh, mode=self.mode)
+            buckets = None
         if checkpoint_every and not checkpoint_path:
             raise ValueError("checkpoint_every needs a checkpoint_path")
         fps_cap = cfg.engine.fps_cap
         n_bucket, t_bucket = buckets or self._pick_buckets(state.gmap.n)
         chunk = cfg.engine.frames_per_dispatch
-        if viewer is not None or net_gui is not None or fps_cap:
+        live_view = viewer is not None or net_gui is not None
+        if mesh is not None:
+            # every rank gathers the map for a viewer that any rank has
+            flag = torch.tensor([int(live_view)], device=self.device)
+            live_view = bool(mesh.all_reduce(flag, op="max"))
+        if live_view or fps_cap:
             chunk = 1  # live modes need per-frame results
         viewer_kf_total = -1
         t0 = time.perf_counter()
@@ -604,8 +725,10 @@ class FusedEngine:
                 # periodic autosave (a device -> host copy of the whole
                 # state; imported here so that a test can patch it)
                 from ..io.checkpoint import save_fused_state
-                save_fused_state(state, checkpoint_path, self.draws,
-                                 (n_bucket, t_bucket))
+                whole = self._whole(state)
+                if self._writes():
+                    save_fused_state(whole, checkpoint_path, self.draws,
+                                     (n_bucket, t_bucket))
             if i % self.BUCKET_SYNC < chunk and i > 0:
                 n_bucket, t_bucket = self._pick_buckets(state.gmap.n)
             if chunk > 1 and i + chunk <= n:
@@ -621,13 +744,14 @@ class FusedEngine:
             depth, rgb = self._on_device(fr)
             state = self.fused.step(state, depth, rgb, i == n - 1, n_bucket,
                                     t_bucket)
+            gmap = self._whole_map(state.gmap) if live_view else state.gmap
             if net_gui is not None:
                 # serve a pending SIBR remote-viewer request against the
                 # current map (reference run_viewer, mp_Mapper.py:272-294)
                 from ..viz.network_gui import make_map_render_fn
                 net_gui.poll(make_map_render_fn(
-                    map_params(state.gmap), state.gmap.live,
-                    cfg.map.sh_degree, cfg.render.bg_color))
+                    map_params(gmap), gmap.live, cfg.map.sh_degree,
+                    cfg.render.bg_color))
             if viewer is not None:
                 # the pose of frame i (a device sync: viewer mode trades
                 # FPS for live output, like the reference's streaming)
@@ -641,8 +765,8 @@ class FusedEngine:
                     tg = state.target
                     viewer.log_points(i, tg.points.T[tg.valid].cpu().numpy())
                     img, _ = self.fused.render_eval(
-                        map_params(state.gmap), state.gmap.live,
-                        invert_se3(pose_i), rgb, depth)
+                        map_params(gmap), gmap.live, invert_se3(pose_i), rgb,
+                        depth)
                     viewer.log_render(i, img.cpu().numpy())
             if fps_cap:
                 # throttle to fps_cap on average (mp_Tracker.py:323-324)
@@ -672,21 +796,24 @@ class FusedEngine:
         psnr_mean = None
         per_frame = None
         if eval_render:
-            params = map_params(state.gmap)
+            gmap = self._whole_map(state.gmap)
+            params = map_params(gmap)
             vals = []
             for i in range(0, n, eval_stride):
                 depth, rgb = self._frame(i)
                 w2c = invert_se3(torch.as_tensor(poses[i], dtype=torch.float32,
                                                  device=self.device))
-                _, p = self.fused.render_eval(params, state.gmap.live, w2c,
-                                              rgb, depth)
+                _, p = self.fused.render_eval(params, gmap.live, w2c, rgb,
+                                              depth)
                 vals.append(float(p))
             per_frame = np.asarray(vals)
             psnr_mean = float(per_frame.mean())
 
+        num_gaussians = (state.gmap.num_live if mesh is None
+                         else num_live(state.gmap, mesh, self.mode))
         return SLAMResult(
             poses=poses, gt_poses=gt, ate_rmse=ate, fps=fps,
-            num_gaussians=state.gmap.num_live, psnr=psnr_mean,
+            num_gaussians=num_gaussians, psnr=psnr_mean,
             per_frame_psnr=per_frame, kf_total=state.kf_total,
             kf_stored=state.kf_count,
             vis_cap_dropped=int(state.stat_vis_dropped),
@@ -701,7 +828,8 @@ class FusedEngine:
 
         assert self.state is not None, "run() first"
         state = self.state
-        params = map_params(state.gmap)
+        gmap = self._whole_map(state.gmap)
+        params = map_params(gmap)
         if poses is None:
             poses = state.poses.cpu().numpy().astype(np.float64)
 
@@ -709,14 +837,14 @@ class FusedEngine:
             depth, rgb = self._frame(i)
             w2c = invert_se3(torch.tensor(poses[i], dtype=torch.float32,
                                           device=self.device))
-            img, _ = self.fused.render_eval(params, state.gmap.live, w2c,
-                                            rgb, depth)
+            img, _ = self.fused.render_eval(params, gmap.live, w2c, rgb,
+                                            depth)
             return img
 
         return evaluate_sequence(render_frame, self.dataset,
                                  len(self.dataset), stride=eval_stride,
                                  depth_scale=self.cfg.intr.depth_scale,
-                                 dump_dir=dump_dir)
+                                 dump_dir=dump_dir if self._writes() else None)
 
     def save_ply(self, path: str) -> int:
         """Export the live map in the 3DGS-ecosystem PLY layout
@@ -724,7 +852,9 @@ class FusedEngine:
         from ..io.ply import save_ply as _save
 
         assert self.state is not None, "run() first"
-        m = self.state.gmap
+        m = self._whole_map(self.state.gmap)
+        if not self._writes():
+            return int(m.live.sum())
         return _save(path, m.xyz, m.f_dc, m.f_rest, m.opacity_logit,
                      m.log_scaling, m.rotation, mask=m.live)
 
@@ -734,11 +864,16 @@ class FusedEngine:
         from ..io.checkpoint import save_fused_state
 
         assert self.state is not None, "run() first"
-        save_fused_state(self.state, path, self.draws)
+        whole = self._whole(self.state)
+        if self._writes():
+            save_fused_state(whole, path, self.draws)
 
     def load_checkpoint(self, path: str) -> None:
         """Read a fused SLAMState (either package's npz) onto the engine's
         device; the draws continue from its position where it holds one."""
         from ..io.checkpoint import load_fused_state
 
-        self.state = load_fused_state(path, self.device, self.draws)
+        state = load_fused_state(path, self.device, self.draws)
+        if self.mesh is not None:
+            state = place_state(state, self.mesh, mode=self.mode)
+        self.state = state

@@ -125,7 +125,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                   "eval.lpips_fixtures", "cli", "__main__", "io.ply",
                   "io.checkpoint", "io.colmap", "datasets.replica",
                   "datasets.tum", "datasets.scene", "eval.offline",
-                  "viz.network_gui", "viz.rerun_logger"):
+                  "viz.network_gui", "viz.rerun_logger",
+                  "parallel.sharded", "parallel.mapping", "parallel.launch",
+                  "ops.rasterize_ref", "utils.profiling"):
             assert "gs_icp_slam_torch." + n in names, n
         import chip_smoke
         bad = [m for m in sys.modules
