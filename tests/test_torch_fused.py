@@ -95,6 +95,7 @@ def _run():
     return jeng, jres, teng, tres
 
 
+@pytest.mark.time_limit(420)  # 160-209 s in tier-1's six workers, 8-core CPU
 def test_fused_engine_matches_jax():
     """The slice as a whole, in one test so that a test worker runs the
     engine pair once: the run, then one step from an identical state."""
