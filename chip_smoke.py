@@ -795,6 +795,7 @@ def run_path_c(seq, cfg, FusedEngine, RecordedDraws, cuda_build, problems):
         "psnr_min": float(res.per_frame_psnr.min()),
         "vis_cap_dropped": res.vis_cap_dropped,
         "tile_cap_dropped": res.tile_cap_dropped, "launches": launches,
+        "opt_step_counters": eng.fused.counters,
         "host_syncs_per_frame": float(np.mean(syncs)),
         "host_syncs_by_frame": syncs, "host_sync_sites": dict(sorted(
             sites.items(), key=lambda kv: -kv[1])),
@@ -803,10 +804,15 @@ def run_path_c(seq, cfg, FusedEngine, RecordedDraws, cuda_build, problems):
     for k in ("nn1", "knn", "composite_fwd", "composite_bwd"):
         if launches[k] <= 0:
             problems.append(f"path C: kernel {k} was not launched")
-    if launches["composite_bwd"] != st.train_iter:
+    # every opt step runs K1-bwd once on the card; the host launches it
+    # for an eager step and a capture, a graph replay relaunches it
+    c = eng.fused.counters
+    if (c["eager_opt_steps"] + c["replays"] != st.train_iter
+            or launches["composite_bwd"] != c["eager_opt_steps"]
+            + c["captures"]):
         problems.append(f"path C: composite_bwd launched "
-                        f"{launches['composite_bwd']} times for "
-                        f"{st.train_iter} opt steps")
+                        f"{launches['composite_bwd']} times from the host, "
+                        f"opt steps {c} for {st.train_iter} iterations")
     if not np.isfinite(res.poses).all():
         problems.append("path C: non-finite poses")
     if not abs(res.ate_rmse - REF_C["ate_m"]) <= TOL_ATE_M:
@@ -829,22 +835,27 @@ def run_path_c(seq, cfg, FusedEngine, RecordedDraws, cuda_build, problems):
                         f"took {len(DRAWS_C)}")
     evaluate_phase(eng, cuda_build, problems)
 
-    # one refine call: 64 mapping iterations, each one K1-bwd launch
+    # one refine call: 64 mapping iterations, each one K1-bwd on the card
     cuda_build.reset_launch_counts()
+    before = dict(c)
     n_bucket, _ = eng._pick_buckets(st.gmap.n)
     eng.state = eng.fused.refine(st, n_bucket)
     torch.cuda.synchronize()
     n_bwd = cuda_build.KERNELS["composite_bwd"].launches
+    d = {k: c[k] - before[k] for k in c}
     finite = all(bool(torch.isfinite(p).all())
                  for p in (*eng.state.gmap[:6], *eng.state.adam.m.values(),
                            *eng.state.adam.v.values()))
     print(json.dumps({"path": "C", "entry": "FusedStep.refine",
                       "composite_bwd_launches": n_bwd,
+                      "opt_step_counters": d,
                       "params_finite": finite,
                       "train_iter": eng.state.train_iter}), flush=True)
-    if n_bwd != 64 or not finite:
+    if (d["eager_opt_steps"] + d["replays"] != 64
+            or n_bwd != d["eager_opt_steps"] + d["captures"] or not finite):
         problems.append(f"refine: composite_bwd launched {n_bwd} times "
-                        f"(expected 64), parameters finite: {finite}")
+                        f"from the host, opt steps {d} (expected 64), "
+                        f"parameters finite: {finite}")
     return eng, res, launches, syncs, last_nn["args"]
 
 

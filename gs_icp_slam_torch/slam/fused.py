@@ -22,7 +22,10 @@ Per frame, as in the JAX step (fused.py:511-647):
 The JAX step is one XLA program; here it is eager PyTorch with the control
 flow on the host: keyframe decisions, the Gauss-Newton loop's convergence
 test and the insertion count are synced scalars (chip_smoke.py counts the
-syncs per frame).  Left behind as TPU mechanics: layout pins, the
+syncs per frame).  On a card without a mesh the single-view opt step, which
+has no sync, runs as one CUDA graph per capacity bucket (`OptGraph`),
+captured on the bucket's first step and replayed after; the CPU and mesh
+paths run it eagerly.  Left behind as TPU mechanics: layout pins, the
 gutted-state lax.cond, lax.scan against compile time and donation.
 
 With a mesh (parallel.make_mesh), the step and engine run on every rank of
@@ -69,8 +72,9 @@ import torch
 from .. import resolve_device
 from ..config import SLAMConfig
 from ..models import (AdamState, GaussianMap, add_gaussians, adam_step,
-                      map_lr_tree, map_params, prune_large_and_transparent,
-                      trackable_export, with_params)
+                      inv_bias_corrections, map_lr_tree, map_params,
+                      prune_large_and_transparent, trackable_export,
+                      with_params)
 from ..ops.gicp import (GICPTarget, gicp_align, make_source,
                         target_from_gaussians, target_from_points)
 from ..ops.rasterize import rasterize_tiled, tile_capacity
@@ -92,8 +96,8 @@ class MappingPrimitives(NamedTuple):
     raster: Callable     # partial of rasterize_tiled at the cfg geometry
     opt_loss: Callable   # (params, live, w2c, rgb_u8, depth_raw)
                          #   -> (loss, stats)
-    opt_step: Callable   # (params, adam, live, w2c, rgb_u8, depth_raw)
-                         #   -> (params, adam, loss, stats)
+    opt_step: Callable   # (params, adam, live, w2c, rgb_u8, depth_raw[,
+                         #  inv_bc]) -> (params, adam, loss, stats)
     opt_step_batched: Callable | None  # the mesh step, one keyframe per
                          # rank (None without a mesh)
     sh_concat: Callable  # params -> (C, (sh+1)^2, 3) SH coefficients
@@ -182,7 +186,7 @@ def make_mapping_primitives(cfg: SLAMConfig, device="cuda", mesh=None,
                                d_max=cfg.opt.depth_d_max)
         return loss, out.stats
 
-    def opt_step(params, adam, live, w2c, rgb_u8, depth_raw):
+    def opt_step(params, adam, live, w2c, rgb_u8, depth_raw, inv_bc=None):
         leaves = {k: p.detach().requires_grad_(True)
                   for k, p in params.items()}
         loss, stats = opt_loss(leaves, live, w2c, rgb_u8, depth_raw)
@@ -192,7 +196,7 @@ def make_mapping_primitives(cfg: SLAMConfig, device="cuda", mesh=None,
                  for (k, p), d in zip(params.items(), got)}
         params, adam = adam_step(params, grads, adam, lrs, live,
                                  b1=cfg.opt.adam_b1, b2=cfg.opt.adam_b2,
-                                 eps=cfg.opt.adam_eps)
+                                 eps=cfg.opt.adam_eps, inv_bc=inv_bc)
         return params, adam, loss.detach(), stats
 
     opt_step_batched = None
@@ -205,6 +209,112 @@ def make_mapping_primitives(cfg: SLAMConfig, device="cuda", mesh=None,
                              opt_step=opt_step,
                              opt_step_batched=opt_step_batched,
                              sh_concat=sh_concat)
+
+
+class OptGraph:
+    """One capacity bucket's single-view opt step (`opt_step`: K1-fwd
+    after projection, compaction and binning, the loss, the gradient with
+    K1-bwd, the masked Adam update) as a CUDA graph, captured once and
+    replayed for every later opt step in the bucket.
+
+    A graph reads and writes fixed addresses, while the engine builds a
+    fresh state each episode and callers step copies of states, so the
+    graph owns its working set: the bucket's parameters, Adam moments and
+    live mask, one keyframe's w2c, RGB and depth, and the reciprocals of
+    Adam's bias corrections as two 0-d tensors (written with fill_, which
+    passes the value as a kernel argument: no upload, no sync).  `load`
+    copies a state's bucket slice in, `step` one keyframe and the step's
+    bias corrections, `store` the slice back out.  The bucket's first
+    step runs eagerly on a side stream, which fills the per-device
+    constant caches and the allocator so that the capture makes no
+    host-to-device copy; the graph is captured after it, into a memory
+    pool of its own (buckets rise within an episode and start small again
+    in the next, so no shared pool sees its graphs replayed in capture
+    order).  `counters` counts captures, replays and the eager steps."""
+
+    def __init__(self, prim: MappingPrimitives, gmap: GaussianMap,
+                 state: SLAMState, opt_cfg, counters: dict):
+        self.prim = prim
+        self.betas = (opt_cfg.adam_b1, opt_cfg.adam_b2)
+        self.counters = counters
+        self.params = {k: torch.empty_like(p)
+                       for k, p in map_params(gmap).items()}
+        self.m = {k: torch.empty_like(p) for k, p in self.params.items()}
+        self.v = {k: torch.empty_like(p) for k, p in self.params.items()}
+        self.live = torch.empty_like(gmap.live)
+        self.w2c = torch.empty_like(state.kf_w2c[0])
+        self.rgb = torch.empty_like(state.kf_rgb[0])
+        self.depth = torch.empty_like(state.kf_depth[0])
+        self.inv_bc = tuple(torch.empty((), dtype=torch.float32,
+                                        device=self.live.device)
+                            for _ in range(2))
+        self.graph = None
+        self.stats = None  # the graph's stats output
+
+    def load(self, gmap: GaussianMap, adam: AdamState):
+        """Copy a state's bucket slice in; returns the map and Adam state
+        to step, on the graph's buffers."""
+        for k, p in map_params(gmap).items():
+            self.params[k].copy_(p)
+            self.m[k].copy_(adam.m[k])
+            self.v[k].copy_(adam.v[k])
+        self.live.copy_(gmap.live)
+        return (with_params(gmap, self.params)._replace(live=self.live),
+                AdamState(m=self.m, v=self.v, step=adam.step))
+
+    def store(self, gmap: GaussianMap, adam: AdamState) -> None:
+        """Copy the buffers back into a state's bucket slice, in place."""
+        for k, p in map_params(gmap).items():
+            p.copy_(self.params[k])
+            adam.m[k].copy_(self.m[k])
+            adam.v[k].copy_(self.v[k])
+        gmap.live.copy_(self.live)
+
+    def step(self, gmap: GaussianMap, adam: AdamState, w2c, rgb_u8,
+             depth_raw):
+        """One opt step of the map and Adam state that `load` returned
+        (its live mask possibly pruned since): (gmap, adam, stats)."""
+        if gmap.live is not self.live:
+            self.live.copy_(gmap.live)
+        self.w2c.copy_(w2c)
+        self.rgb.copy_(rgb_u8)
+        self.depth.copy_(depth_raw)
+        t = adam.step + 1
+        for buf, x in zip(self.inv_bc, inv_bias_corrections(t, *self.betas)):
+            buf.fill_(x)
+        if self.graph is None:
+            stats = self._capture()
+        else:
+            self.graph.replay()
+            self.counters["replays"] += 1
+            stats = self.stats
+        return gmap._replace(live=self.live), adam._replace(step=t), stats
+
+    def _body(self):
+        params, adam, _, stats = self.prim.opt_step(
+            self.params, AdamState(m=self.m, v=self.v, step=0), self.live,
+            self.w2c, self.rgb, self.depth, inv_bc=self.inv_bc)
+        for k, p in self.params.items():
+            p.copy_(params[k])
+            self.m[k].copy_(adam.m[k])
+            self.v[k].copy_(adam.v[k])
+        return stats
+
+    def _capture(self):
+        dev = self.live.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            stats = self._body()  # this step, eagerly
+        main.wait_stream(side)
+        self.counters["eager_opt_steps"] += 1
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.stats = self._body()
+        self.graph = graph
+        self.counters["captures"] += 1
+        return stats
 
 
 # ------------------------------------------------------------ draws ------
@@ -275,6 +385,8 @@ class FusedStep(NamedTuple):
                            #   -> (img, psnr)
     refine: Callable       # (state[, nb]) -> state: REFINE_CHUNK mapping
                            # iterations
+    counters: dict         # captures, replays, eager_opt_steps: how the
+                           # opt steps ran (OptGraph)
 
 
 def to_chw(rgb_hwc, device="cuda") -> torch.Tensor:
@@ -363,15 +475,32 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
         return prims[n_cap]
 
     prim = get_prim()
+    # the opt step runs as a CUDA graph per bucket on a card without a
+    # mesh; on the CPU, and with a mesh (collectives), eagerly
+    graphed = mesh is None and dev.type == "cuda"
+    graphs: dict = {}
+    counters = {"captures": 0, "replays": 0, "eager_opt_steps": 0}
     bg = torch.tensor(cfg.render.bg_color, dtype=torch.float32, device=dev)
     fx, fy = intr.fx, intr.fy
     rcx, rcy = (intr.width - 1) / 2.0, (intr.height - 1) / 2.0
+
+    def get_graph(n_bucket, gmap: GaussianMap, state: SLAMState) -> OptGraph:
+        key = (n_bucket, gmap.capacity)
+        if key not in graphs:
+            graphs[key] = OptGraph(get_prim(n_bucket), gmap, state, cfg.opt,
+                                   counters)
+        return graphs[key]
 
     def mapping_iters(state: SLAMState, n_iters: int, n_bucket=None):
         gmap_full = state.gmap
         gmap = _slice_map(gmap_full, n_bucket)
         adam = _slice_adam(state.adam, n_bucket)
         prim_b = get_prim(n_bucket)
+        graph = get_graph(n_bucket, gmap, state) if graphed else None
+        # the map and Adam state the iterations step: the graph's buffers,
+        # or the slice itself (replaced step by step)
+        work, work_adam = ((gmap, adam) if graph is None
+                           else graph.load(gmap, adam))
         vis_drop, pair_drop = state.stat_vis_dropped, state.stat_pair_dropped
         for it in range(n_iters):
             rand_idx = draws(max(state.kf_count, 1))
@@ -379,8 +508,8 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
                    else rand_idx)
             state.train_iter += 1
             if state.train_iter % cfg.map.prune_interval == 0:
-                gmap = prune_large_and_transparent(
-                    gmap, cfg.map.prune_min_opacity, cfg.map.prune_extent)
+                work = prune_large_and_transparent(
+                    work, cfg.map.prune_min_opacity, cfg.map.prune_extent)
             if mesh is not None:
                 # one keyframe per rank: the first takes the usual pick
                 # (newest, then uniform), the others uniform draws
@@ -389,19 +518,31 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
                 idxs[0] = idx
             if state.kf_count == 0:
                 continue  # frame 0 has no stored keyframe yet
-            if mesh is None:
-                params, adam, _, stats = prim_b.opt_step(
-                    map_params(gmap), adam, gmap.live, state.kf_w2c[idx],
-                    state.kf_rgb[idx], state.kf_depth[idx])
+            if graph is not None:
+                work, work_adam, stats = graph.step(
+                    work, work_adam, state.kf_w2c[idx], state.kf_rgb[idx],
+                    state.kf_depth[idx])
             else:
-                params, adam, _, stats = prim_b.opt_step_batched(
-                    map_params(gmap), adam, gmap.live, state.kf_w2c[idxs],
-                    state.kf_rgb[idxs], state.kf_depth[idxs])
-            gmap = with_params(gmap, params)
+                counters["eager_opt_steps"] += 1
+                if mesh is None:
+                    params, work_adam, _, stats = prim_b.opt_step(
+                        map_params(work), work_adam, work.live,
+                        state.kf_w2c[idx], state.kf_rgb[idx],
+                        state.kf_depth[idx])
+                else:
+                    params, work_adam, _, stats = prim_b.opt_step_batched(
+                        map_params(work), work_adam, work.live,
+                        state.kf_w2c[idxs], state.kf_rgb[idxs],
+                        state.kf_depth[idxs])
+                work = with_params(work, params)
             vis_drop = torch.maximum(vis_drop, stats[1])
             pair_drop = torch.maximum(pair_drop, stats[2])
-        state.gmap = _unslice_map(gmap_full, gmap, n_bucket)
-        state.adam = _unslice_adam(state.adam, adam, n_bucket)
+        if graph is None:
+            state.gmap = _unslice_map(gmap_full, work, n_bucket)
+            state.adam = _unslice_adam(state.adam, work_adam, n_bucket)
+        else:
+            graph.store(gmap, adam)
+            state.adam = state.adam._replace(step=work_adam.step)
         state.new_kf = -1
         state.stat_vis_dropped, state.stat_pair_dropped = vis_drop, pair_drop
         return state
@@ -559,7 +700,8 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
         return out.color, -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
 
     return FusedStep(step=step, step_chunk=step_chunk,
-                     render_eval=render_eval, refine=refine)
+                     render_eval=render_eval, refine=refine,
+                     counters=counters)
 
 
 # ------------------------------------------------------------ engine -----

@@ -33,10 +33,11 @@ def l2_masked(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.where(gt != 0.0, (pred - gt) ** 2, 0.0).mean()
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=None)
 def _gaussian_1d(window_size: int, sigma: float,
                  device: torch.device) -> torch.Tensor:
-    """The normalised window, uploaded once per device."""
+    """The normalised window, uploaded once per device and kept: a
+    captured CUDA graph reads it by address (slam/fused.py OptGraph)."""
     xs = np.arange(window_size)
     g = np.exp(-((xs - window_size // 2) ** 2) / (2.0 * sigma**2))
     return torch.as_tensor((g / g.sum()).astype(np.float32), device=device)
