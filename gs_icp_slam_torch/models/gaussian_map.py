@@ -132,12 +132,18 @@ def add_gaussians(m: GaussianMap, points: torch.Tensor, colors: torch.Tensor,
     return m._replace(n=min(m.n + count, C))
 
 
+def trackable_mask(m: GaussianMap, opacity_th: float) -> torch.Tensor:
+    """The slots the target export takes: live, trackable, with opacity
+    above the threshold."""
+    return m.live & m.trackable & (m.opacity[:, 0] > opacity_th)
+
+
 def trackable_export(m: GaussianMap, opacity_th: float, out_capacity: int):
     """get_trackable_gaussians_tensor (gaussian_model.py:207-215): xyz,
     normalized rotation and scaling of the live trackable Gaussians with
     opacity above the threshold, in slot order, in a buffer of
     out_capacity rows.  Returns (points, rots, scales, valid)."""
-    mask = m.live & m.trackable & (m.opacity[:, 0] > opacity_th)
+    mask = trackable_mask(m, opacity_th)
     order = torch.argsort((~mask).to(torch.int8), stable=True)[:out_capacity]
     count = int(mask.sum())
     valid = torch.arange(order.shape[0], device=mask.device) < count

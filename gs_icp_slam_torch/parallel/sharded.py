@@ -29,7 +29,7 @@ import math
 import torch
 
 from ..models import AdamState, GaussianMap
-from ..models.gaussian_map import _gicp_log_scales
+from ..models.gaussian_map import _gicp_log_scales, trackable_mask
 from ..utils.sh import rgb_to_sh
 
 MAP_AXIS = "map"
@@ -181,7 +181,7 @@ def trackable_export_sharded(m: GaussianMap, mesh, opacity_th: float,
     the other rows in rank order, cut at out_capacity, are the global
     stable order's first out_capacity rows (a list cut at L rows is cut
     past that point)."""
-    mask = m.live & m.trackable & (m.opacity[:, 0] > opacity_th)
+    mask = trackable_mask(m, opacity_th)
     L = min(out_capacity, m.capacity)
     order = torch.argsort((~mask).to(torch.int8), stable=True)[:L]
     rows = torch.cat([m.xyz[order], m.rotation_normalized[order],

@@ -74,7 +74,7 @@ from ..config import SLAMConfig
 from ..models import (AdamState, GaussianMap, add_gaussians, adam_step,
                       inv_bias_corrections, map_lr_tree, map_params,
                       prune_large_and_transparent, trackable_export,
-                      with_params)
+                      trackable_mask, with_params)
 from ..ops.gicp import (GICPTarget, gicp_align, make_source,
                         target_from_gaussians, target_from_points)
 from ..ops.rasterize import rasterize_tiled, tile_capacity
@@ -386,7 +386,9 @@ class FusedStep(NamedTuple):
     refine: Callable       # (state[, nb]) -> state: REFINE_CHUNK mapping
                            # iterations
     counters: dict         # captures, replays, eager_opt_steps: how the
-                           # opt steps ran (OptGraph)
+                           # opt steps ran (OptGraph); insert_dropped,
+                           # export_dropped: rows the map's and the
+                           # target's capacity left out
 
 
 def to_chw(rgb_hwc, device="cuda") -> torch.Tensor:
@@ -457,6 +459,7 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
     mode = None if mesh is None else choose_mode(
         cfg.map.capacity, cfg.map.sh_degree, cfg.engine.parallel_mode)
     sharded = mode == "fsdp"
+    shards = mesh.size if sharded else 1  # a map holds capacity x shards
     intr = cfg.intr
     gicp_cfg = cfg.gicp
     tc = cfg.engine.target_capacity
@@ -479,7 +482,8 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
     # mesh; on the CPU, and with a mesh (collectives), eagerly
     graphed = mesh is None and dev.type == "cuda"
     graphs: dict = {}
-    counters = {"captures": 0, "replays": 0, "eager_opt_steps": 0}
+    counters = {"captures": 0, "replays": 0, "eager_opt_steps": 0,
+                "insert_dropped": 0, "export_dropped": 0}
     bg = torch.tensor(cfg.render.bg_color, dtype=torch.float32, device=dev)
     fx, fy = intr.fx, intr.fy
     rcx, rcy = (intr.width - 1) / 2.0, (intr.height - 1) / 2.0
@@ -556,20 +560,41 @@ def make_fused_step(cfg: SLAMConfig, filt: DownsampleFilter, draws,
         state.kf_count = min(state.kf_count + 1, kc)
         state.kf_total += 1
 
-    def insert(m: GaussianMap, *args, **kw) -> GaussianMap:
+    # the keyframe path's insert and target export are profiler spans;
+    # each syncs on its row count, so its wall time holds its device work
+    # up to that point.  Rows left out for want of capacity are counted
+    # with one more sync, and only where there can be any: at a full map,
+    # and where the export reads more used slots than the target has rows
+    # (splats past the bucket wait for the next pick and are not counted)
+    @torch.profiler.record_function("fused.insert")
+    def insert(m: GaussianMap, points, colors, quats, scales, z, trackable,
+               valid, init_opacity: float) -> GaussianMap:
+        args = (points, colors, quats, scales, z, trackable, valid)
         if sharded:
-            return add_gaussians_sharded(m, mesh, *args, **kw)
-        return add_gaussians(m, *args, **kw)
+            out = add_gaussians_sharded(m, mesh, *args,
+                                        init_opacity=init_opacity)
+        else:
+            out = add_gaussians(m, *args, init_opacity=init_opacity)
+        cap = m.capacity * shards
+        if out.n == cap:
+            counters["insert_dropped"] += int(valid.sum()) - (cap - m.n)
+        return out
 
+    @torch.profiler.record_function("fused.export")
     def export_target(gmap: GaussianMap, n_bucket=None) -> GICPTarget:
+        th = cfg.map.trackable_opacity_th
         out_cap = tc if n_bucket is None else min(tc, n_bucket)
         if sharded:
             pts, rots, scales, valid = trackable_export_sharded(
-                gmap, mesh, cfg.map.trackable_opacity_th, out_cap)
+                gmap, mesh, th, out_cap)
         else:
-            pts, rots, scales, valid = trackable_export(
-                _slice_map(gmap, n_bucket), cfg.map.trackable_opacity_th,
-                out_cap)
+            gmap = _slice_map(gmap, n_bucket)
+            pts, rots, scales, valid = trackable_export(gmap, th, out_cap)
+        if min(gmap.n, gmap.capacity * shards) > out_cap:
+            count = trackable_mask(gmap, th).sum().reshape(1)
+            if sharded:
+                mesh.all_reduce(count)
+            counters["export_dropped"] += max(int(count) - out_cap, 0)
         return target_from_gaussians(pts, rots, scales, valid, gicp_cfg,
                                      capacity=tc)
 

@@ -115,7 +115,8 @@ def test_fused_engine_matches_jax():
     assert ts.adam.step == int(js.adam.step) == ts.train_iter
     # on the CPU no opt step is graphed (slam/fused.py OptGraph)
     assert teng.fused.counters == {"captures": 0, "replays": 0,
-                                   "eager_opt_steps": ts.adam.step}
+                                   "eager_opt_steps": ts.adam.step,
+                                   "insert_dropped": 0, "export_dropped": 0}
     assert (ts.frame_idx, ts.new_kf, ts.from_last_kf) == (
         int(js.frame_idx), int(js.new_kf), int(js.from_last_kf))
     np.testing.assert_array_equal(ts.gmap.live.numpy(),

@@ -167,4 +167,5 @@ def test_cpu_opt_step_stays_eager():
     eng.run(eval_render=False)
     assert eng.state.adam.step == 3 * ITERS
     assert eng.fused.counters == {"captures": 0, "replays": 0,
-                                  "eager_opt_steps": eng.state.adam.step}
+                                  "eager_opt_steps": eng.state.adam.step,
+                                  "insert_dropped": 0, "export_dropped": 0}
